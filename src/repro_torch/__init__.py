@@ -1,0 +1,19 @@
+"""Atos on PyTorch and CUDA: the port of the ``repro`` package to one NVIDIA H100.
+
+The module layout mirrors ``repro`` so that each module's counterpart is
+found under the same path.  Tensors live on the device the caller names;
+every entry point defaults to ``device="cuda"`` and raises without a card
+unless ``device="cpu"`` is passed.  The hand-written kernels
+(``kernels/``, sources in ``csrc/``) run on CUDA tensors; their plain
+PyTorch versions run on CPU tensors.
+
+This slice ports speculative BFS end to end:
+
+  graph       CSR container and the R-MAT / grid / Erdos generators
+  core        backend axis, task queue, chunk codec, frontier expansion,
+              wavefront scheduler
+  kernels     B1 load-balancing search, B2 stream compaction
+  runtime     program protocol, execution policy, ``execute``
+  algorithms  BFS (speculative and level-synchronous)
+  convert     numpy <-> port objects, for handing state across packages
+"""

@@ -1,0 +1,47 @@
+"""Carry state across from the reference package as numpy arrays.
+
+The reference keeps its graphs, queues and BFS states as pytrees of
+arrays; ``np.asarray`` of each leaf hands them to these constructors, and
+:func:`to_numpy` hands the port's objects back.  The tests use this to
+give both packages the same graph and the same mid-drain queue and state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .algorithms.bfs import BFSState
+from .core.backend import resolve_device
+from .core.counters import WorkCounter
+from .core.queue import TaskQueue
+from .core.tree import to_numpy
+from .graph.csr import CSRGraph
+
+__all__ = ["graph_from_numpy", "queue_from_numpy", "bfs_state_from_numpy",
+           "to_numpy"]
+
+
+def _int32(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.int32), device=device)
+
+
+def graph_from_numpy(row_ptr, col_idx, device="cuda") -> CSRGraph:
+    device = resolve_device(device)
+    return CSRGraph(row_ptr=_int32(row_ptr, device),
+                    col_idx=_int32(col_idx, device))
+
+
+def queue_from_numpy(buf, head, tail, dropped, device="cuda") -> TaskQueue:
+    device = resolve_device(device)
+    return TaskQueue(buf=_int32(buf, device), head=_int32(head, device),
+                     tail=_int32(tail, device),
+                     dropped=_int32(dropped, device))
+
+
+def bfs_state_from_numpy(dist, work, splits, rounds,
+                         device="cuda") -> BFSState:
+    device = resolve_device(device)
+    return BFSState(dist=_int32(dist, device),
+                    counter=WorkCounter(work=_int32(work, device),
+                                        splits=_int32(splits, device),
+                                        rounds=_int32(rounds, device)))

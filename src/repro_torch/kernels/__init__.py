@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``csrc/``) + their plain
+PyTorch versions.
+
+frontier_expand -- B1, merge-path load-balancing search; hot path of
+                   ``core.frontier.expand_merge_path`` on the ``"cuda"``
+                   backend
+queue_compact   -- B2, stable stream compaction; hot path of
+                   ``core.queue.TaskQueue.push`` on the ``"cuda"`` backend
+
+Each wrapper launches its kernel for CUDA tensors and uses the plain
+version only for CPU tensors.  Libraries are built by nvcc at first launch
+(``kernels/build.py``), never at import.
+"""

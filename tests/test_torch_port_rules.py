@@ -1,0 +1,134 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the reference
+package; its entry points run on the card unless the caller asks for the
+CPU; the ``"cuda"`` backend never runs on CPU tensors; unported cells and
+algorithms raise naming their ROADMAP item; ``chip_smoke.py`` fails, and
+prints no result, away from the repository."""
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.graph as tg
+from repro.runtime import POLICY_GRID as J_POLICY_GRID
+from repro.runtime import parse_policy as j_parse
+from repro_torch.convert import graph_from_numpy
+from repro_torch.core import (BACKENDS, SchedulerConfig, expand_merge_path,
+                              make_queue, resolve_backend)
+from repro_torch.runtime import (POLICY_GRID, build_program, config_for,
+                                 parse_policy)
+from repro_torch.runtime.api import execute
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: tg.rmat(4),
+    lambda: tg.grid2d(3, 3),
+    lambda: tg.erdos(10, 20),
+    lambda: tg.from_edges(3, [0, 1], [1, 2]),
+    lambda: make_queue(8),
+    lambda: graph_from_numpy(np.array([0, 1, 1]), np.array([1])),
+    lambda: tg.grid2d(3, 3, device="cpu").to("cuda"),
+])
+def test_default_device_entry_points_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    g = tg.grid2d(4, 4, device="cpu")
+    items = torch.tensor([0, 5], dtype=torch.int32)
+    valid = torch.tensor([True, True])
+    assert resolve_backend("auto", items) == "torch"
+    assert BACKENDS == ("torch", "cuda", "auto")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        resolve_backend("cuda", items)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        expand_merge_path(items, valid, g.row_ptr, g.col_idx, 16,
+                          backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        make_queue(8, device="cpu").push(items, valid, backend="cuda")
+    cfg = SchedulerConfig(num_workers=2, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        execute(build_program("bfs", g, cfg), g, cfg)
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("pallas", items)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        lbs_cuda(torch.zeros(4, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        compact_cuda(torch.zeros(4, dtype=torch.int32),
+                     torch.zeros(4, dtype=torch.bool))
+
+
+def test_policy_matrix_parses_like_jax():
+    assert [str(p) for p in POLICY_GRID] == [str(p) for p in J_POLICY_GRID]
+    for name in ("single.persistent", "fused.discrete.g4",
+                 "sharded.persistent.g2", "single.megakernel.g8"):
+        assert str(parse_policy(name)) == str(j_parse(name))
+    with pytest.raises(ValueError):
+        parse_policy("sharded.megakernel")
+
+
+@pytest.mark.parametrize("policy,item", [
+    ("fused.persistent", "A7"), ("sharded.discrete", "A12"),
+    ("single.megakernel", "A8")])
+def test_unported_cells_name_their_roadmap_item(policy, item):
+    g = tg.grid2d(3, 3, device="cpu")
+    cfg = config_for(SchedulerConfig(num_workers=2), parse_policy(policy))
+    with pytest.raises(NotImplementedError, match=item):
+        execute(build_program("bfs", g, SchedulerConfig(num_workers=2)), g,
+                cfg)
+
+
+def test_unported_algorithms_and_trace_raise():
+    g = tg.grid2d(3, 3, device="cpu")
+    cfg = SchedulerConfig(num_workers=2)
+    for algo in ("pagerank", "coloring"):
+        with pytest.raises(NotImplementedError, match="A6"):
+            build_program(algo, g, cfg)
+    with pytest.raises(NotImplementedError, match="A10"):
+        execute(build_program("bfs", g, cfg), g, cfg, trace=[])
+    with pytest.raises(ValueError, match="unknown bfs params"):
+        build_program("bfs", g, cfg, params={"sorce": 0})
+
+
+def test_chip_smoke_alone_fails_without_a_result(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--scale", "4",
+                           "--grid-side", "4"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
