@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      ``single.persistent.g4`` against scipy the same way;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
-     call of a back-to-back run between CUDA events -- the drains with the
-     host clock, and the main drain's device time by kernel;
+     call of a back-to-back run between CUDA events -- and the main drain
+     on each backend with the host clock (auto, torch, torch, auto), then
+     once more each under the profiler for device time, busy share and
+     device ops per predicated step;
   6. print a ``{"kernels": [...]}`` line, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
 
@@ -74,9 +76,10 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 
 
 def device_profile(fn, reps: int = 1):
-    """``(device ms per call, [(kernel, total ms), ...])`` from
+    """``(device ms per call, [(device op, total ms, calls), ...])`` from
     torch.profiler's CUDA activity over ``reps`` calls, or ``(None, [])``
-    when the profiler reports no device time."""
+    when the profiler reports no device time.  A device op is a kernel, a
+    copy or a fill."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -84,10 +87,10 @@ def device_profile(fn, reps: int = 1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    total = sum(ms for _, ms in rows)
+    total = sum(ms for _, ms, _ in rows)
     return (total / reps if total > 0 else None), rows
 
 
@@ -227,6 +230,7 @@ def main() -> int:
     ap.add_argument("--grid-side", type=int, default=1024,
                     help="side of the grid2d graph (default 1024)")
     args = ap.parse_args()
+    started = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this check runs "
@@ -284,7 +288,12 @@ def main() -> int:
     reset_counts()
     state, stats, info, secs = drain(graph, cfg, source)
     counts = read_counts()
+    steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
     log(f"    counts={counts} info={info} drain {secs:.3f} s")
+    if counts != {"lbs": steps, "compact": steps + 1}:
+        raise AssertionError(f"expected one LBS and one compaction launch "
+                             f"per predicated step ({steps}) plus the seed "
+                             f"push's compaction, got {counts}")
     if info["dropped"] != 0:
         raise AssertionError(f"the main path dropped {info['dropped']} items")
     if min(counts.values()) <= 0:
@@ -340,7 +349,9 @@ def main() -> int:
         return out
 
     # each version: device time per call (profiler) and time per call of a
-    # back-to-back run between CUDA events, which includes launch gaps
+    # back-to-back run between CUDA events, which includes launch gaps.  If
+    # the profiler saw no device time for one of a kernel's three versions,
+    # all three are reported by their event times, so that they compare.
     versions = {
         "lbs": (lambda: lbs_cuda(main_scan, budget),
                 lambda: lbs_ref(main_scan, budget),
@@ -351,26 +362,52 @@ def main() -> int:
     }
     times = {}
     for name, fns in versions.items():
-        times[name] = [(device_profile(fn, reps=20)[0], cuda_ms(fn))
-                       for fn in fns]
+        by_profiler = [device_profile(fn, reps=20)[0] for fn in fns]
+        by_events = [cuda_ms(fn) for fn in fns]
+        if None in by_profiler:
+            times[name] = (by_events, "cuda events", by_events)
+        else:
+            times[name] = (by_profiler, "profiler device time", by_events)
     # least time: each input read once, each output written once
     bound_bytes = {"lbs": 4 * main_scan.shape[0] + 8 * budget,
                    "compact": 5 * n_push + 4 * n_push + 4}
 
-    drain_dev, drain_rows = device_profile(lambda: drain(graph, cfg, source))
-    steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
-    busy = None if drain_dev is None else drain_dev / (1e3 * secs)
+    # the main drain again on each backend, warm, in the order auto,
+    # torch, torch, auto so that neither is always first; then one drain of
+    # each under the profiler: its device time over its own host time is
+    # the busy share, and its device ops per predicated step are the
+    # launches a round costs the host
+    backends = {"auto": cfg, "torch": cfg_plain}
+    walls = {"auto": [], "torch": []}
+    for name in ("auto", "torch", "torch", "auto"):
+        walls[name].append(drain(graph, backends[name], source)[3])
     rounds = info["rounds"]
-    for label, s in (("auto (kernels)", secs), ("torch (plain)", secs_p)):
-        log(f"    drain rmat({args.scale}) backend={label}: {s:.3f} s, "
-            f"{rounds} rounds ({steps} predicated steps), "
-            f"{1e3 * s / rounds:.3f} ms/round, "
-            f"{graph.num_edges / s:.4g} input edges/s  [{card}]")
-    log(f"    drain rmat({args.scale}) backend=auto, device time "
-        f"{drain_dev} ms of {1e3 * secs:.1f} ms wall: busy share {busy}; "
-        f"top kernels by device time (ms):")
-    for key, ms in drain_rows[:10]:
-        log(f"      {ms:10.3f}  {key[:100]}")
+    profiled = {}
+    for name, c in backends.items():
+        held = {}
+        dev_ms, rows = device_profile(
+            lambda: held.update(secs=drain(graph, c, source)[3]))
+        n_ops = sum(calls for _, _, calls in rows)
+        profiled[name] = {
+            "seconds": held["secs"], "device_ms": dev_ms,
+            "busy_share": None if dev_ms is None
+            else dev_ms / (1e3 * held["secs"]),
+            "device_ops": n_ops, "device_ops_per_step": n_ops / steps,
+            "device_ops_ms_calls": rows}
+    for name, first in (("auto", secs), ("torch", secs_p)):
+        mean = sum(walls[name]) / len(walls[name])
+        prof = profiled[name]
+        log(f"    drain rmat({args.scale}) backend={name}: first {first} s, "
+            f"warm {walls[name]} s; {rounds} rounds ({steps} predicated "
+            f"steps), warm {1e3 * mean / rounds:.3f} ms/round, "
+            f"{graph.num_edges / mean:.4g} input edges/s  [{card}]")
+        log(f"      under the profiler: {prof['seconds']} s wall, device "
+            f"time {prof['device_ms']} ms, busy share {prof['busy_share']}; "
+            f"{prof['device_ops_per_step']} device ops per predicated step "
+            f"({prof['device_ops']} in {steps}); top device ops by time "
+            f"(ms, calls):")
+        for key, ms, calls in prof["device_ops_ms_calls"][:10]:
+            log(f"      {ms:10.3f} {calls:7d}  {key[:90]}")
     log(f"    drain grid2d({side},{side}) g4: {secs_g:.3f} s, "
         f"{info_g['rounds']} rounds, {1e3 * secs_g / info_g['rounds']:.3f} "
         f"ms/round  [{card}]")
@@ -386,18 +423,14 @@ def main() -> int:
                            f"p=0.3")}
     kernels = []
     for name, (source_file, replaces, err, shape) in sources.items():
-        (kd, ke), (pd, pe), (ld, le) = times[name]
+        (kd, pd, ld), timed_by, (ke, pe, le) = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source_file,
             "replaces": replaces, "launches": counts[name],
             "bit_equal": err == 0, "max_abs_err": err,
-            "ms": kd if kd is not None else ke,
-            "plain_ms": pd if pd is not None else pe,
+            "ms": kd, "plain_ms": pd,
             "bound_ms": 1e3 * bound_bytes[name] / HBM_BYTES_PER_S,
-            "bound_by": "bytes",
-            "library_ms": ld if ld is not None else le,
-            "timed_by": "profiler device time" if kd is not None
-            else "cuda events",
+            "bound_by": "bytes", "library_ms": ld, "timed_by": timed_by,
             "event_ms": ke, "plain_event_ms": pe, "library_event_ms": le,
             "shape": shape})
     for kern in kernels:
@@ -410,14 +443,16 @@ def main() -> int:
         "card": card, "scale": args.scale, "grid_side": side,
         "main": {"n": graph.num_vertices, "m": graph.num_edges,
                  "source": source, "budget": budget, "info": info,
-                 "seconds": secs, "seconds_torch_backend": secs_p,
-                 "predicated_steps": steps, "device_ms": drain_dev,
-                 "busy_share": busy, "kernels_ms": drain_rows[:40]},
+                 "predicated_steps": steps,
+                 "first_seconds": {"auto": secs, "torch": secs_p},
+                 "warm_seconds": walls, "profiled": profiled},
         "grid_g4": {"info": info_g, "seconds": secs_g,
                     "launches": counts_g},
         "kernels": kernels,
     }
+    summary["script_seconds"] = time.perf_counter() - started
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
+    log(f"[6] chip_smoke.py took {summary['script_seconds']:.1f} s  [{card}]")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

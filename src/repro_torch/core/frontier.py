@@ -7,9 +7,10 @@ The counterpart of ``repro/core/frontier.py``.
   * ``expand_merge_path`` -- CTA-sized worker: a load-balancing search
     spreads the wavefront's total neighbor work evenly over the lanes.
 
-``expand_merge_path``'s ``backend`` runs the search either as the plain
-reference below or, for CUDA tensors, as the hand-written LBS kernel
-(``kernels/frontier_expand``).  Both give identical outputs.
+``expand_merge_path``'s ``backend`` runs the load-balancing search either
+as its plain version or, for CUDA tensors, as the hand-written LBS kernel
+(``kernels/frontier_expand``); the glue around the search is shared, and
+both give identical outputs.
 
 JAX clamps out-of-range gathers silently; PyTorch raises on the CPU and is
 undefined on CUDA.  Every gather below whose index the reference lets run
@@ -22,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.frontier_expand.kernel import lbs_cuda
+from ..kernels.frontier_expand.ref import lbs_ref
 from .backend import resolve_backend
 
 _I32 = torch.int32
@@ -36,19 +39,8 @@ def _no_overlay(overlay) -> None:
 
 def searchsorted_right(sorted_arr: torch.Tensor,
                        values: torch.Tensor) -> torch.Tensor:
-    """Vectorized upper_bound: index of the first element > value.
-
-    The reference's explicit branchless binary search, step for step.
-    """
-    n = sorted_arr.shape[0]
-    lo = torch.zeros(values.shape, dtype=_I32, device=values.device)
-    hi = torch.full(values.shape, n, dtype=_I32, device=values.device)
-    for _ in range(max(1, n.bit_length())):
-        mid = (lo + hi) // 2
-        go_right = sorted_arr[torch.clamp(mid, 0, n - 1)] <= values
-        lo = torch.where(go_right & (mid < hi), mid + 1, lo)
-        hi = torch.where(go_right, hi, torch.minimum(hi, mid))
-    return lo
+    """Vectorized upper_bound: int32 index of the first element > value."""
+    return torch.searchsorted(sorted_arr, values, right=True, out_int32=True)
 
 
 def adjacency_of(graph):
@@ -113,12 +105,18 @@ def inclusive_scan(deg: torch.Tensor):
     return scan, total
 
 
-def finish_expansion(row_ptr, col_idx, safe, owner, rank, widths, max_width,
-                     budget, total) -> Expansion:
-    """The part of the expansion shared by both backends: from each work
-    unit's ``(owner, rank)`` to its source row and neighbor, masked to the
-    first ``total`` units.  ``rank`` is garbage past ``total``; the gathers
-    it feeds are clamped and their results masked."""
+def lbs_expansion(search, items, valid, row_ptr, col_idx, budget: int,
+                  widths=None, max_width: int = 1) -> Expansion:
+    """The merge-path expansion around a load-balancing ``search``
+    (``scan, budget -> (owner, rank)``, the contract of ``lbs_ref``): the
+    chunk degrees and their scan before it, and after it each unit's source
+    row and neighbor, masked to the first ``total`` units.  ``rank`` is
+    garbage past ``total``; the gathers it feeds are clamped and their
+    results masked."""
+    safe = torch.where(valid, items, 0)
+    deg = chunk_degrees(items, widths, valid, row_ptr)
+    scan, total = inclusive_scan(deg)
+    owner, rank = search(scan, budget)
     owner = torch.clamp(owner, 0, safe.shape[0] - 1)
     head = safe[owner]
     src = (head if widths is None else
@@ -146,24 +144,14 @@ def expand_merge_path(items: torch.Tensor, valid: torch.Tensor,
     ``items[i]`` is a vertex id (or EMPTY), or with ``widths`` the head of
     a chunk of ``widths[i]`` rows.  ``work_budget`` is the static number of
     work units per wavefront; units past it are masked out.  ``backend``
-    selects the search: the reference below, or the LBS kernel
-    (``kernels/frontier_expand/ops.frontier_expand``).
+    selects the search: the LBS kernel (``kernels/frontier_expand``) when it
+    resolves to ``"cuda"``, else its plain version ``lbs_ref``.
     """
     _no_overlay(overlay)
-    if resolve_backend(backend, row_ptr) == "cuda":
-        # imported lazily: kernels/ imports Expansion from this module
-        from ..kernels.frontier_expand.ops import frontier_expand
-
-        return frontier_expand(items, valid, row_ptr, col_idx, work_budget,
-                               widths=widths, max_width=max_width)
-    safe = torch.where(valid, items, 0)
-    deg = chunk_degrees(items, widths, valid, row_ptr)
-    scan, total = inclusive_scan(deg)
-    k = torch.arange(work_budget, dtype=_I32, device=items.device)
-    owner = torch.clamp(searchsorted_right(scan, k), 0, items.shape[0] - 1)
-    rank = k - (scan - deg)[owner]       # edge offset within the chunk
-    return finish_expansion(row_ptr, col_idx, safe, owner, rank, widths,
-                            max_width, work_budget, total)
+    cuda = resolve_backend(backend, row_ptr) == "cuda"
+    search = lbs_cuda if cuda else lbs_ref
+    return lbs_expansion(search, items, valid, row_ptr, col_idx, work_budget,
+                         widths, max_width)
 
 
 def expand_per_item(items: torch.Tensor, valid: torch.Tensor,

@@ -8,7 +8,7 @@ application function ``f``, push the produced tasks.
     no device-side while-loop, so each round is *predicated*: it computes
     the continuation flag on the device and, once the flag is false,
     changes nothing (queue, state, round and item counts alike).  The host
-    enqueues ``poll_every`` such rounds between two reads of the flag, and
+    enqueues ``POLL_EVERY`` such rounds between two reads of the flag, and
     those rounds make no host sync at all -- the CUDA sync-debug mode is
     set to raise inside them, so a sync that crept in fails loudly.
   * :func:`discrete_drive` -- a host loop that reads the flag once per
@@ -158,8 +158,8 @@ def no_host_sync(device):
         torch.cuda.set_sync_debug_mode(previous)
 
 
-def persistent_drive(step, cond, carry0, *, poll_every: int = POLL_EVERY):
-    """Device-resident drain: ``poll_every`` predicated rounds per host poll.
+def persistent_drive(step, cond, carry0):
+    """Device-resident drain: ``POLL_EVERY`` predicated rounds per host poll.
 
     A predicated round applies ``step`` only while ``cond`` holds on the
     device, so the result -- rounds included -- is exactly the reference's
@@ -173,7 +173,7 @@ def persistent_drive(step, cond, carry0, *, poll_every: int = POLL_EVERY):
     carry = carry0
     while bool(cond(carry)):  # the one host sync per poll
         with no_host_sync(device):
-            for _ in range(poll_every):
+            for _ in range(POLL_EVERY):
                 carry = predicated(carry)
     return carry
 

@@ -73,31 +73,46 @@ __global__ void lbs_global(const int* __restrict__ scan, int w,
   search_units(scan, w, owner, rank, budget);
 }
 
+// The SM count and the shared-memory opt-in limit of each device, read
+// once: the drain launches this kernel every round and is host-bound.
+struct DeviceLimits {
+  int sms = 0;
+  int smem_optin = 0;
+  int smem_set = 48 * 1024;  // dynamic shared memory lbs_shared may use
+};
+constexpr int kMaxDevices = 64;
+DeviceLimits g_limits[kMaxDevices];
+
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 on success).
 extern "C" int lbs_launch(const int* scan, int w, int* owner, int* rank,
                           int budget, cudaStream_t stream) {
   int dev = 0;
-  int sms = 0;
-  int smem_optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceLimits& lim = g_limits[dev];
+  if (lim.sms == 0) {
+    err = cudaDeviceGetAttribute(&lim.smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&lim.sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
 
   const int wanted = (budget + kThreads - 1) / kThreads;
-  const int blocks = wanted < sms * kBlocksPerSm ? wanted : sms * kBlocksPerSm;
+  const int most = lim.sms * kBlocksPerSm;
+  const int blocks = wanted < most ? wanted : most;
   const size_t bytes = static_cast<size_t>(w) * sizeof(int);
-  if (bytes <= static_cast<size_t>(smem_optin)) {
-    if (bytes > 48 * 1024) {
+  if (bytes <= static_cast<size_t>(lim.smem_optin)) {
+    if (bytes > static_cast<size_t>(lim.smem_set)) {
       err = cudaFuncSetAttribute(lbs_shared,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(bytes));
       if (err != cudaSuccess) return err;
+      lim.smem_set = static_cast<int>(bytes);
     }
     lbs_shared<<<blocks, kThreads, bytes, stream>>>(scan, w, owner, rank,
                                                     budget);

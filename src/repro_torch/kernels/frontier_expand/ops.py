@@ -1,20 +1,16 @@
 """Public wrapper: full CSR wavefront expansion through the LBS kernel.
 
-The counterpart of ``repro/kernels/frontier_expand/ops.py``.
-``core/frontier.expand_merge_path`` dispatches here when its backend
-resolves to ``"cuda"``, which makes the kernel the hot path of the
-merge-path strategy in ``algorithms/bfs.py``.
-
-Only the search runs in the kernel.  The glue around it -- chunk degrees,
-the scan, the clip, ``chunk_row_of`` and ``gather_neighbors`` -- stays
-plain PyTorch here, as the reference keeps it outside its kernel too.
+The counterpart of ``repro/kernels/frontier_expand/ops.py``.  Only the
+search runs in the kernel.  The glue around it -- chunk degrees, the scan,
+the clip, ``chunk_row_of`` and ``gather_neighbors`` -- is
+``core/frontier.lbs_expansion``, plain PyTorch shared with the plain
+backend, as the reference keeps it outside its kernel too.
 """
 from __future__ import annotations
 
 import torch
 
-from ...core.frontier import (Expansion, chunk_degrees, finish_expansion,
-                              inclusive_scan)
+from ...core.frontier import Expansion, lbs_expansion
 from .kernel import lbs_cuda
 from .ref import lbs_ref
 
@@ -29,9 +25,5 @@ def frontier_expand(items, valid, row_ptr, col_idx, budget: int,
                     widths=None, max_width: int = 1) -> Expansion:
     """Drop-in replacement for ``core.frontier.expand_merge_path`` that runs
     the merge-path search through :func:`lbs`; identical outputs."""
-    safe = torch.where(valid, items, 0)
-    deg = chunk_degrees(items, widths, valid, row_ptr)
-    scan, total = inclusive_scan(deg)
-    owner, rank = lbs(scan, budget)
-    return finish_expansion(row_ptr, col_idx, safe, owner, rank, widths,
-                            max_width, budget, total)
+    return lbs_expansion(lbs, items, valid, row_ptr, col_idx, budget, widths,
+                         max_width)

@@ -17,6 +17,8 @@ from ..build import check_launch, load
 
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """``(compact_launch, items per block)``; the kernel's tile is read
+    once, as the push calls this every round."""
     lib = load("compact")
     lib.compact_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_void_p,
@@ -25,7 +27,7 @@ def _lib():
     lib.compact_launch.restype = ctypes.c_int
     lib.compact_tile.argtypes = []
     lib.compact_tile.restype = ctypes.c_int
-    return lib
+    return lib.compact_launch, lib.compact_tile()
 
 
 def compact_cuda(items: torch.Tensor, mask: torch.Tensor):
@@ -46,19 +48,18 @@ def compact_cuda(items: torch.Tensor, mask: torch.Tensor):
     n = items.shape[0]
     if n >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"{n} items are more than the kernel indexes")
-    out = torch.empty(n, dtype=torch.int32, device=items.device)
     if n == 0:
-        return out, torch.zeros((), dtype=torch.int32, device=items.device)
-    count = torch.empty((), dtype=torch.int32, device=items.device)
-    lib = _lib()
-    tile = lib.compact_tile()
-    scratch = torch.empty(-(-n // tile), dtype=torch.int32,
-                          device=items.device)
+        return (torch.empty(0, dtype=torch.int32, device=items.device),
+                torch.zeros((), dtype=torch.int32, device=items.device))
+    launch, tile = _lib()
+    # one allocation: the output, then the count, then the tile offsets
+    buf = torch.empty(n + 1 + -(-n // tile), dtype=torch.int32,
+                      device=items.device)
+    out, count, scratch = buf[:n], buf[n], buf[n + 1:]
     with torch.cuda.device(items.device):
-        err = lib.compact_launch(items.data_ptr(), mask.data_ptr(), n,
-                                 out.data_ptr(), count.data_ptr(),
-                                 scratch.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+        err = launch(items.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
+                     count.data_ptr(), scratch.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     check_launch(err, "compact")
     compact_cuda.launches += 1
     return out, count

@@ -11,6 +11,7 @@ from repro.core import ChunkCodec as JCodec, make_queue as j_make_queue
 from repro.core.frontier import chunk_degrees as j_chunk_degrees
 from repro.core.frontier import expand_merge_path as j_expand
 from repro.core.frontier import expand_per_item as j_expand_per_item
+from repro.core.frontier import searchsorted_right as j_searchsorted_right
 from repro.graph import rmat as j_rmat
 from repro.kernels.frontier_expand.kernel import lbs_pallas
 from repro.kernels.frontier_expand.ops import frontier_expand as j_frontier
@@ -18,7 +19,8 @@ from repro.kernels.frontier_expand.ref import lbs_ref as j_lbs_ref
 from repro.kernels.queue_compact.ops import compact as j_compact
 from repro.kernels.queue_compact.ref import compact_ref as j_compact_ref
 from repro_torch.convert import graph_from_numpy, queue_from_numpy
-from repro_torch.core import ChunkCodec, expand_merge_path, expand_per_item
+from repro_torch.core import (ChunkCodec, expand_merge_path, expand_per_item,
+                              searchsorted_right)
 from repro_torch.kernels.frontier_expand.ops import frontier_expand, lbs
 from repro_torch.kernels.frontier_expand.ref import lbs_ref
 from repro_torch.kernels.queue_compact.ops import compact
@@ -57,6 +59,15 @@ def test_lbs_plain_matches_pallas_interpret(w, budget):
     total = min(int(scan[-1]), budget)
     _eq(o[:total], np.asarray(po)[:total])
     _eq(r, pr)
+
+
+@pytest.mark.parametrize("w,budget", LBS_SWEEP)
+def test_searchsorted_right_matches_jax(w, budget):
+    scan = _scan(np.random.default_rng(200 + w).integers(0, 9, size=w))
+    k = np.arange(budget, dtype=np.int32)
+    got = searchsorted_right(torch.from_numpy(scan), torch.from_numpy(k))
+    assert got.dtype == torch.int32
+    _eq(got, j_searchsorted_right(jnp.asarray(scan), jnp.asarray(k)))
 
 
 def test_lbs_zero_degrees_and_budget_past_total():
