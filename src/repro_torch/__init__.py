@@ -7,12 +7,13 @@ unless ``device="cpu"`` is passed.  The hand-written kernels
 (``kernels/``, sources in ``csrc/``) run on CUDA tensors; their plain
 PyTorch versions run on CPU tensors.
 
-This slice ports speculative BFS end to end:
+The port so far runs speculative BFS end to end:
 
   graph       CSR container and the R-MAT / grid / Erdos generators
   core        backend axis, task queue, chunk codec, frontier expansion,
-              wavefront scheduler
-  kernels     B1 load-balancing search, B2 stream compaction
+              wavefront scheduler (persistent, discrete, megakernel)
+  kernels     B1 load-balancing search, B2 stream compaction, B3 the BFS
+              drain in one launch, B4 the row-slice stream
   runtime     program protocol, execution policy, ``execute``
   algorithms  BFS (speculative and level-synchronous)
   convert     numpy <-> port objects, for handing state across packages

@@ -186,6 +186,22 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                                  backend=ctx.backend, codec=codec,
                                  split_threshold=threshold)
 
+    def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
+                          max_rounds: int):
+        # the B3 kernel covers the merge-path body at G = 1; wider chunks
+        # and per_item come with ROADMAP A8b
+        if strategy != "merge_path" or ctx.granularity != 1:
+            return None
+        from ..kernels.drain_loop.bfs_drain import bfs_drain_cuda  # lazy
+
+        def run(carry, limit=None):
+            return bfs_drain_cuda(carry, body_graph.row_ptr,
+                                  body_graph.col_idx,
+                                  wavefront=ctx.wavefront, budget=budget,
+                                  max_rounds=max_rounds, limit=limit)
+
+        return run
+
     return AtosProgram(
         name="bfs",
         init=lambda: (init_state(graph, source),
@@ -196,6 +212,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         splits=lambda s: s.counter.splits,
         ideal_work=n,
         default_queue_capacity=queue_capacity or max(4 * n, 1024),
+        make_drain_kernel=make_drain_kernel,
     )
 
 

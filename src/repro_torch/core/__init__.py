@@ -1,9 +1,11 @@
 """Atos core: wavefront task queue, schedulers, chunk tasks, expansion."""
-from .backend import BACKENDS, has_cuda, resolve_backend, resolve_device
+from .backend import (BACKENDS, STREAM, STREAM_TORCH, has_cuda,
+                      resolve_backend, resolve_device)
 from .queue import EMPTY, TaskQueue, make_queue
 from .scheduler import (QueueOps, RunStats, SchedulerConfig, continuation,
-                        discrete_drive, no_host_sync, persistent_drive,
-                        taskqueue_ops, wavefront_step)
+                        discrete_drive, megakernel_drive, megakernel_segment,
+                        no_host_sync, persistent_drive, taskqueue_ops,
+                        wavefront_step)
 from .frontier import (Expansion, adjacency_of, chunk_degrees, chunk_row_of,
                        expand_merge_path, expand_per_item, gather_neighbors,
                        searchsorted_right)
@@ -12,10 +14,12 @@ from .task import (MAX_GRANULARITY, ChunkCodec, chunk_seeds, coalesce_chunks,
 from .counters import WorkCounter, overwork_ratio
 
 __all__ = [
-    "BACKENDS", "has_cuda", "resolve_backend", "resolve_device",
+    "BACKENDS", "STREAM", "STREAM_TORCH", "has_cuda", "resolve_backend",
+    "resolve_device",
     "EMPTY", "TaskQueue", "make_queue",
     "QueueOps", "RunStats", "SchedulerConfig", "continuation",
-    "discrete_drive", "no_host_sync", "persistent_drive", "taskqueue_ops",
+    "discrete_drive", "megakernel_drive", "megakernel_segment",
+    "no_host_sync", "persistent_drive", "taskqueue_ops",
     "wavefront_step",
     "Expansion", "adjacency_of", "chunk_degrees", "chunk_row_of",
     "expand_merge_path", "expand_per_item", "gather_neighbors",

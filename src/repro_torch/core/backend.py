@@ -20,6 +20,13 @@ Values:
 
 Backend choice is a performance axis only: every dispatch site gives
 bit-identical results on every backend.
+
+Two internal values, as the reference's ``STREAM``: ``"stream"`` and
+``"stream-torch"`` make ``core/frontier.expand_merge_path`` expand over
+streamed row slices (``kernels/drain_loop/csr_stream``), with the B4 kernel
+on CUDA tensors or with its plain version.  The runtime puts one of them in
+the context of a megakernel body; they are never a valid
+``SchedulerConfig.backend``, and ``resolve_backend`` rejects them.
 """
 from __future__ import annotations
 
@@ -27,6 +34,12 @@ import torch
 
 #: the public axis values, in the order they appear in docs.
 BACKENDS = ("torch", "cuda", "auto")
+
+#: internal expansion values for megakernel bodies (see the module doc)
+STREAM = "stream"
+STREAM_TORCH = "stream-torch"
+#: each internal value -> the backend its row-slice stream runs on
+STREAMS = {STREAM: "auto", STREAM_TORCH: "torch"}
 
 
 def has_cuda() -> bool:

@@ -25,7 +25,7 @@ import torch
 
 from ..kernels.frontier_expand.kernel import lbs_cuda
 from ..kernels.frontier_expand.ref import lbs_ref
-from .backend import resolve_backend
+from .backend import STREAMS, resolve_backend
 
 _I32 = torch.int32
 
@@ -145,8 +145,19 @@ def expand_merge_path(items: torch.Tensor, valid: torch.Tensor,
     a chunk of ``widths[i]`` rows.  ``work_budget`` is the static number of
     work units per wavefront; units past it are masked out.  ``backend``
     selects the search: the LBS kernel (``kernels/frontier_expand``) when it
-    resolves to ``"cuda"``, else its plain version ``lbs_ref``.
+    resolves to ``"cuda"``, else its plain version ``lbs_ref``.  The
+    internal values ``STREAM`` and ``STREAM_TORCH`` (core/backend.py) of a
+    megakernel body expand over streamed row slices instead
+    (``kernels/drain_loop/csr_stream``), with an identical result.
     """
+    if backend in STREAMS:
+        # lazy: kernels/drain_loop imports Expansion and the schedule
+        # helpers from this module
+        from ..kernels.drain_loop.csr_stream import expand_stream
+
+        return expand_stream(items, valid, row_ptr, col_idx, work_budget,
+                             widths=widths, max_width=max_width,
+                             overlay=overlay, backend=STREAMS[backend])
     _no_overlay(overlay)
     cuda = resolve_backend(backend, row_ptr) == "cuda"
     search = lbs_cuda if cuda else lbs_ref

@@ -12,7 +12,9 @@ application function ``f``, push the produced tasks.
     those rounds make no host sync at all -- the CUDA sync-debug mode is
     set to raise inside them, so a sync that crept in fails loudly.
   * :func:`discrete_drive` -- a host loop that reads the flag once per
-    round, as the reference's discrete kernels do.
+    round, as the reference's discrete kernels do;
+  * :func:`megakernel_drive` -- the whole drain in one launch of the
+    program's CUDA drain kernel (``kernels/drain_loop``).
 
 The step is generic over a :class:`QueueOps` triple, as in the reference.
 """
@@ -56,8 +58,8 @@ class SchedulerConfig:
     The fields and their meaning are the reference's; see
     ``repro/core/scheduler.SchedulerConfig``.  ``backend`` is the port's
     axis (``"torch" | "cuda" | "auto"``, core/backend.py) and defaults to
-    ``"auto"``.  This slice executes the ``single`` topology under the
-    ``persistent`` and ``discrete`` strategies at any granularity; the
+    ``"auto"``.  The port executes the ``single`` topology under the
+    ``persistent``, ``discrete`` and ``megakernel`` strategies; the
     topology and kernel fields take every value of the policy matrix, and
     ``runtime.execute`` names the ROADMAP item of each cell it cannot run
     yet.  The sharded topology's exchange and stealing fields come with
@@ -176,6 +178,25 @@ def persistent_drive(step, cond, carry0):
             for _ in range(POLL_EVERY):
                 carry = predicated(carry)
     return carry
+
+
+def megakernel_drive(step, cond, carry0, *, limit=None, kernel=None):
+    """Whole drain in ONE launch of the program's CUDA drain kernel
+    (``kernel``, a runner ``kernel(carry, limit)``), or as the plain fused
+    drain when ``kernel`` is None; ``limit`` cuts it at an absolute round.
+    Imported lazily: kernels/ imports this package's types."""
+    from ..kernels.drain_loop.ops import megakernel_drive as _drive
+
+    return _drive(step, cond, carry0, limit=limit, kernel=kernel)
+
+
+def megakernel_segment(step, cond, example_carry, *, kernel=None):
+    """``seg(carry, limit)`` for drains cut into segments: each call drains
+    to round ``limit`` (absolute) in one launch of ``kernel``, or through
+    the plain fused drain.  Imported lazily, as :func:`megakernel_drive`."""
+    from ..kernels.drain_loop.ops import make_megakernel_segment
+
+    return make_megakernel_segment(step, cond, example_carry, kernel=kernel)
 
 
 def discrete_drive(step, cond, carry0):

@@ -6,6 +6,10 @@ frontier_expand -- B1, merge-path load-balancing search; hot path of
                    backend
 queue_compact   -- B2, stable stream compaction; hot path of
                    ``core.queue.TaskQueue.push`` on the ``"cuda"`` backend
+drain_loop      -- B3, speculative BFS's whole drain in one cooperative
+                   launch (``kernel="megakernel"`` on CUDA tensors), its
+                   generic plain version ``fused_drain_ref``, and B4, the
+                   double-buffered row-slice stream B3 stages through
 
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors.  Libraries are built by nvcc at first launch

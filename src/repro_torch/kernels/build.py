@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root, keyed by
-a hash of the source and the flags, so a changed source is rebuilt and an
-unchanged one is not.  Nothing is built when a module is imported: a
+a hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so a
+changed source is rebuilt and an unchanged one is not.  Nothing is built when a module is imported: a
 library is built at its kernel's first launch, or ahead of time by
 :func:`build`, which starts one nvcc per source, all at once.  nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lbs", "compact")
+SOURCES = ("lbs", "compact", "csr_stream", "bfs_drain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,8 +36,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -9,6 +9,9 @@ packages one application's drain:
     stop(state)               -> optional convergence predicate
     empty_means_done          -> does a drained queue end the run?
     result(state), work(state), splits(state), ideal_work
+    make_drain_kernel(graph, ctx, max_rounds)
+                              -> optional CUDA drain kernel for the
+                                 megakernel strategy (the port's own field)
 
 The reference's replica-merge spec and ``task_vertex``/``task_width``
 come with the sharded and fused slices, its ``dirty_seeds`` hook with the
@@ -48,6 +51,12 @@ class AtosProgram:
     ideal_work: int = 0
     #: capacity hint when the caller does not size the queue explicitly
     default_queue_capacity: int = 1024
+    #: ``(graph, ctx, max_rounds) -> runner(carry, limit)``: the program's
+    #: hand-written drain kernel for ``kernel="megakernel"`` on CUDA
+    #: tensors, or None where this program or configuration has none.  The
+    #: runner drains while ``rounds < min(max_rounds, limit)`` and the
+    #: body's ``cond`` holds, bit-identical to the plain fused drain.
+    make_drain_kernel: Optional[Callable] = None
 
     def body(self, graph, ctx: ProgramContext):
         return self.make_body(graph, ctx)
@@ -56,6 +65,11 @@ class AtosProgram:
         if self.make_on_empty is None:
             return None
         return self.make_on_empty(graph, ctx)
+
+    def drain_kernel(self, graph, ctx: ProgramContext, max_rounds: int):
+        if self.make_drain_kernel is None:
+            return None
+        return self.make_drain_kernel(graph, ctx, max_rounds)
 
     def work_of(self, state) -> int:
         return 0 if self.work is None else int(self.work(state))

@@ -85,3 +85,184 @@ def test_bfs_through_kernels_matches_plain_and_cpu(policy):
     for dist, stats, info in results[1:]:
         assert torch.equal(dist, results[0][0])
         assert stats == results[0][1] and info == results[0][2]
+
+
+# ------------------------------------------------- B4, the row-slice stream
+STREAM_CASES = [
+    # (items, budget, how the starts are drawn)
+    (0, 8, "random"), (1, 1, "random"), (1, 4096, "random"),
+    (4096, 4096, "row_ptr"), (300, 4099, "near_end"), (257, 13, "random"),
+    (64, 1000, "out_of_range"),
+]
+
+
+def _starts(rng, n_items, budget, how, row_ptr, m):
+    if how == "row_ptr":
+        rows = rng.integers(0, row_ptr.shape[0] - 1, size=n_items)
+        return row_ptr[rows]
+    if how == "near_end":
+        return rng.integers(max(m - budget, 0), m + 1, size=n_items)
+    if how == "out_of_range":
+        return rng.integers(-3 * budget, m + 3 * budget, size=n_items)
+    return rng.integers(0, m, size=n_items)
+
+
+@pytest.mark.parametrize("n_items,budget,how", STREAM_CASES)
+def test_stream_kernel_matches_plain(n_items, budget, how):
+    _require_cuda()
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.csr_stream import (
+        stream_row_slices_cuda, stream_row_slices_ref)
+
+    g = rmat(10, 16, seed=2, device="cuda")
+    rng = np.random.default_rng(n_items + budget)
+    starts = _starts(rng, n_items, budget, how, g.row_ptr.cpu().numpy(),
+                     g.num_edges)
+    starts = torch.as_tensor(starts.astype(np.int32), device="cuda")
+    before = stream_row_slices_cuda.launches
+    got = stream_row_slices_cuda(g.col_idx, starts, budget)
+    want = stream_row_slices_ref(g.col_idx, starts, budget)
+    assert got.shape == want.shape == (n_items, budget)
+    assert torch.equal(got, want)
+    assert stream_row_slices_cuda.launches - before == (n_items > 0)
+
+
+# ------------------------------------------- B3, the BFS drain megakernel
+def _setup(graph, policy, source=0, backend="auto", **kw):
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.runtime import build_program, config_for, parse_policy
+    from repro_torch.runtime.api import drain_setup
+
+    base = dict(num_workers=64, fetch_size=2, backend=backend)
+    base.update(kw)
+    cfg = config_for(SchedulerConfig(**base), parse_policy(policy))
+    program = build_program("bfs", graph, cfg, params={"source": source})
+    return drain_setup(program, graph, cfg)
+
+
+def _flat(carry):
+    queue, state, rounds, processed = carry
+    return ([queue.buf.cpu(), state.dist.cpu()],
+            [int(x) for x in (queue.head, queue.tail, queue.dropped, rounds,
+                              processed, state.counter.work,
+                              state.counter.splits, state.counter.rounds)])
+
+
+def _assert_same(a, b):
+    (ta, sa), (tb, sb) = _flat(a), _flat(b)
+    assert sa == sb
+    for x, y in zip(ta, tb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("graph", ["rmat(10)", "grid2d(32)"])
+@pytest.mark.parametrize("workers", [64, 8192])
+def test_bfs_drain_kernel_matches_persistent_and_plain(graph, workers):
+    """dist, counters and the final queue against the persistent cell on
+    the kernels and, at 64 workers, the plain fused drain.  8192 workers x
+    4 puts the wavefront (256 KB) past shared memory, on the global-scratch
+    path; there the plain stream's [W, budget] slices would not fit on the
+    card."""
+    _require_cuda()
+    from repro_torch.core import (megakernel_drive, no_host_sync,
+                                  persistent_drive)
+    from repro_torch.graph import grid2d, rmat
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+
+    g = (rmat(10, 16, seed=2, device="cuda") if graph == "rmat(10)"
+         else grid2d(32, 32, device="cuda"))
+    kw = dict(num_workers=workers, fetch_size=4 if workers > 64 else 2)
+    persistent = _setup(g, "single.persistent", **kw)
+    want = persistent_drive(persistent.step, persistent.cond,
+                            persistent.carry)
+    mega = _setup(g, "single.megakernel", **kw)
+    before = bfs_drain_cuda.launches
+    with no_host_sync(g.device):
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+    torch.cuda.synchronize()
+    assert bfs_drain_cuda.launches - before == 1
+    _assert_same(got, want)
+    assert int(got[0].dropped) == 0
+    if workers == 64:
+        plain = _setup(g, "single.megakernel", backend="torch", **kw)
+        assert plain.kernel is None
+        _assert_same(got, megakernel_drive(plain.step, plain.cond,
+                                           plain.carry))
+
+
+def test_megakernel_execute_is_one_b3_launch_and_no_b1_b2():
+    _require_cuda()
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+    from repro_torch.runtime import (build_program, config_for, execute,
+                                     parse_policy)
+
+    g = rmat(10, 16, seed=2, device="cuda")
+    results = []
+    for policy in ("single.persistent", "single.megakernel"):
+        cfg = config_for(SchedulerConfig(num_workers=64, fetch_size=2),
+                         parse_policy(policy))
+        counts = (bfs_drain_cuda.launches, lbs_cuda.launches,
+                  compact_cuda.launches)
+        state, stats, info = execute(build_program("bfs", g, cfg), g, cfg)
+        launched = [now - was for now, was in zip(
+            (bfs_drain_cuda.launches, lbs_cuda.launches,
+             compact_cuda.launches), counts)]
+        results.append((state.dist.cpu(), [int(x) for x in stats], info))
+        if policy == "single.megakernel":
+            assert launched == [1, 0, 0] and info["launches"] == 1
+        else:
+            assert launched[0] == 0 and min(launched[1:]) > 0
+    assert torch.equal(results[0][0], results[1][0])
+    assert results[0][1] == results[1][1]
+    assert {**results[0][2], "launches": 1} == results[1][2]
+
+
+@pytest.mark.parametrize("every", [1, 3])
+def test_bfs_drain_segments_equal_the_whole_drain(every):
+    _require_cuda()
+    from repro_torch.core import megakernel_drive, megakernel_segment
+    from repro_torch.graph import rmat
+
+    g = rmat(10, 16, seed=2, device="cuda")
+    whole = _setup(g, "single.megakernel")
+    want = megakernel_drive(whole.step, whole.cond, whole.carry,
+                            kernel=whole.kernel)
+    cut = _setup(g, "single.megakernel")
+    seg = megakernel_segment(cut.step, cut.cond, cut.carry,
+                             kernel=cut.kernel)
+    carry, limit, segments = cut.carry, 0, 0
+    while bool(cut.cond(carry)):
+        limit += every
+        carry = seg(carry, limit)
+        segments += 1
+        assert int(carry[2]) == min(limit, int(want[2]))
+    assert segments == -(-int(want[2]) // every)
+    _assert_same(carry, want)
+    cut_rounds = _setup(g, "single.megakernel", max_rounds=5)
+    short = megakernel_drive(cut_rounds.step, cut_rounds.cond,
+                             cut_rounds.carry, kernel=cut_rounds.kernel)
+    assert int(short[2]) == 5
+
+
+@pytest.mark.parametrize("policy,params,item", [
+    ("single.megakernel.g4", {}, "A8b"),
+    ("single.megakernel", {"strategy": "per_item"}, "A8b")])
+def test_megakernel_without_a_drain_kernel_raises_on_cuda(policy, params,
+                                                          item):
+    _require_cuda()
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import grid2d
+    from repro_torch.runtime import (build_program, config_for, execute,
+                                     parse_policy)
+
+    g = grid2d(8, 8, device="cuda")
+    cfg = config_for(SchedulerConfig(num_workers=8), parse_policy(policy))
+    with pytest.raises(NotImplementedError, match=item):
+        execute(build_program("bfs", g, cfg, params=params), g, cfg)
+    with pytest.raises(NotImplementedError, match="A6"):
+        build_program("coloring", g, cfg)

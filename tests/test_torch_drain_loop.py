@@ -1,0 +1,351 @@
+"""The megakernel slice of the PyTorch port against the JAX package, on the
+CPU, bit for bit, on numpy-made inputs: the row-slice stream's plain
+version (B4) against numpy slicing; the streamed expansion against JAX's
+``expand_merge_path(backend="jnp")``; the plain fused drain (B3's plain
+version) on claim/push tapes against JAX's ``fused_drain_pallas``; and
+``execute`` under ``single.megakernel`` against JAX's ``single.persistent``
+cell, whole, cut at ``max_rounds`` and cut into segments.
+
+JAX's own megakernel cells and its ``stream_row_slices`` do not run on the
+installed JAX (ROADMAP C-ref1), so the port is held against the cells and
+functions they are defined to equal.  The CUDA kernels themselves are held
+against these plain versions on the card in tests/test_torch_cuda.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.graph as jg
+import repro_torch.graph as tg
+from repro.core import ChunkCodec as JCodec
+from repro.core import EMPTY as J_EMPTY
+from repro.core import SchedulerConfig as JConfig
+from repro.core import make_queue as j_make_queue
+from repro.core.frontier import chunk_degrees as j_chunk_degrees
+from repro.core.frontier import expand_merge_path as j_expand
+from repro.kernels.drain_loop import fused_drain_pallas
+from repro.runtime import build_program as j_build
+from repro.runtime import config_for as j_config_for
+from repro.runtime import execute as j_execute
+from repro.runtime import parse_policy as j_parse
+from repro_torch.convert import graph_from_numpy
+from repro_torch.core import (EMPTY, STREAM, STREAM_TORCH, SchedulerConfig,
+                              expand_merge_path, make_queue,
+                              megakernel_drive, megakernel_segment,
+                              resolve_backend)
+from repro_torch.core.tree import tree_where
+from repro_torch.kernels.drain_loop.csr_stream import (expand_stream,
+                                                       stream_row_slices,
+                                                       stream_row_slices_ref)
+from repro_torch.kernels.drain_loop.kernel import (fused_drain_ref,
+                                                   make_fused_drain)
+from repro_torch.runtime import build_program, config_for, parse_policy
+from repro_torch.runtime.api import drain_setup, execute
+
+GRAPHS = {
+    "rmat(8,8,1)": (lambda: jg.rmat(8, 8, seed=1),
+                    lambda: tg.rmat(8, 8, seed=1, device="cpu")),
+    "grid2d(16,16)": (lambda: jg.grid2d(16, 16),
+                      lambda: tg.grid2d(16, 16, device="cpu")),
+}
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return {name: (mj(), mt()) for name, (mj, mt) in GRAPHS.items()}
+
+
+def _eq(port, ref, err=""):
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref), err_msg=err)
+
+
+# ------------------------------------------------ B4's plain version
+@pytest.mark.parametrize("n_items,budget,m", [
+    (0, 8, 50), (1, 1, 50), (7, 13, 50), (64, 4, 1000), (33, 257, 300),
+    (5, 64, 3)])
+def test_stream_row_slices_ref_matches_numpy_slicing(n_items, budget, m):
+    rng = np.random.default_rng(n_items * 31 + budget)
+    col = rng.integers(0, 1 << 20, size=m).astype(np.int32)
+    starts = rng.integers(-2 * budget, m + 2 * budget,
+                          size=n_items).astype(np.int32)
+    starts[: n_items // 3] = rng.integers(max(m - budget, 0), m + 1,
+                                          size=n_items // 3)
+    padded = np.concatenate([col, np.zeros(budget, np.int32)])
+    want = np.zeros((n_items, budget), np.int32)
+    for i, s in enumerate(np.clip(starts, 0, m)):
+        want[i] = padded[s: s + budget]
+    for fn in (stream_row_slices_ref, stream_row_slices):
+        got = fn(torch.from_numpy(col), torch.from_numpy(starts), budget)
+        assert got.dtype == torch.int32 and got.shape == (n_items, budget)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------- the streamed expansion over a wrapped ring
+@pytest.fixture(scope="module")
+def wrapped_wavefronts():
+    """Chunk wavefronts popped across a wrapped ring head whose degree sum
+    spills past one LBS tile, made by the JAX queue (the regime of
+    test_kernels.py's multi-tile case)."""
+    graph = jg.rmat(8, 8, seed=3)
+    out = {}
+    rings = {1: (256, 192, 160, 192), 4: (64, 48, 40, 48)}
+    for g, (cap, first, popped, second) in rings.items():
+        codec = JCodec(g)
+        n = graph.num_vertices
+        local = np.random.default_rng(7)
+
+        def chunks(k, base):
+            heads = local.integers(0, n - 4, size=k).astype(np.int32) + base
+            widths = local.integers(1, g + 1, size=k).astype(np.int32)
+            return codec.encode(jnp.asarray(heads % (n - 4)),
+                                jnp.asarray(widths))
+
+        q = j_make_queue(cap).push_dense(chunks(first, 0))
+        _, _, q = q.pop(popped)
+        q = q.push_dense(chunks(second, 100))
+        head_before = int(q.head)
+        items, valid, q = q.pop(cap)
+        assert head_before + int(np.asarray(valid).sum()) > cap
+        heads, widths = codec.decode(jnp.where(valid, items, 0))
+        out[g] = (graph, heads, widths, valid)
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("budget", [1024, 4096])
+def test_expand_stream_matches_jax_jnp_expansion(wrapped_wavefronts, g,
+                                                 budget):
+    graph, heads, widths, valid = wrapped_wavefronts[g]
+    total = int(jnp.cumsum(j_chunk_degrees(heads, widths, valid,
+                                           graph.row_ptr))[-1])
+    assert total > 1024                     # multi-tile
+    jw = widths if g > 1 else None
+    ref = j_expand(heads, valid, graph.row_ptr, graph.col_idx, budget,
+                   backend="jnp", widths=jw, max_width=g)
+    pg = graph_from_numpy(np.asarray(graph.row_ptr),
+                          np.asarray(graph.col_idx), device="cpu")
+    th = torch.from_numpy(np.array(heads))
+    tv = torch.from_numpy(np.array(valid))
+    tw = torch.from_numpy(np.array(widths)) if g > 1 else None
+    paths = {
+        "expand_stream": expand_stream(th, tv, pg.row_ptr, pg.col_idx, budget,
+                                       widths=tw, max_width=g),
+        "STREAM": expand_merge_path(th, tv, pg.row_ptr, pg.col_idx, budget,
+                                    backend=STREAM, widths=tw, max_width=g),
+        "STREAM_TORCH": expand_merge_path(th, tv, pg.row_ptr, pg.col_idx,
+                                          budget, backend=STREAM_TORCH,
+                                          widths=tw, max_width=g),
+    }
+    for name, got in paths.items():
+        for field, x, y in zip(ref._fields, got, ref):
+            _eq(x, y, f"{name} {field}")
+
+
+def test_stream_values_are_internal_and_overlays_wait_for_a9():
+    g = tg.grid2d(4, 4, device="cpu")
+    items = torch.tensor([0, 5], dtype=torch.int32)
+    for value in (STREAM, STREAM_TORCH):
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend(value, items)
+        with pytest.raises(ValueError, match="unknown backend"):
+            execute(build_program("bfs", g, SchedulerConfig(num_workers=2)),
+                    g, SchedulerConfig(num_workers=2, backend=value))
+    with pytest.raises(NotImplementedError, match="A9"):
+        expand_stream(items, torch.ones(2, dtype=torch.bool), g.row_ptr,
+                      g.col_idx, 16, overlay=object())
+
+
+# ------------------------- B3's plain version on claim/push tapes
+_W = 4  # wavefront of every claim, as in tests/test_megakernel.py
+
+
+def _jax_tape(cap, ops):
+    """The tape inside ONE fused_drain_pallas launch (interpret mode)."""
+    n_ops = len(ops)
+    kinds = jnp.asarray([0 if k == "push" else 1 for k, _ in ops], jnp.int32)
+    counts = jnp.asarray([n for _, n in ops], jnp.int32)
+    carry0 = (j_make_queue(cap), jnp.int32(0), jnp.int32(0),
+              jnp.full((n_ops, _W), J_EMPTY, jnp.int32),
+              jnp.zeros((n_ops, _W), jnp.bool_),
+              jnp.zeros((n_ops, 3), jnp.int32))
+
+    def step(carry):
+        q, i, counter, items_tr, valid_tr, cursor_tr = carry
+        n = counts[i]
+
+        def do_push(q):
+            lane = jnp.arange(_W, dtype=jnp.int32)
+            return (q.push(counter + lane, lane < n),
+                    jnp.full((_W,), J_EMPTY, jnp.int32),
+                    jnp.zeros((_W,), jnp.bool_), counter + n)
+
+        def do_claim(q):
+            items, valid, q2 = q.pop_upto(_W, n)
+            return q2, items, valid, counter
+
+        q, items, valid, counter = jax.lax.cond(kinds[i] == 0, do_push,
+                                                do_claim, q)
+        cursors = jnp.stack([q.head, q.tail, q.dropped])
+        return (q, i + 1, counter, items_tr.at[i].set(items),
+                valid_tr.at[i].set(valid), cursor_tr.at[i].set(cursors))
+
+    q, i, _, items_tr, valid_tr, cursor_tr = fused_drain_pallas(
+        step, lambda c: c[1] < n_ops, carry0)
+    return q, i, items_tr, valid_tr, cursor_tr
+
+
+def _port_tape(cap, ops):
+    """The same tape through the port's plain fused drain; both branches
+    run and a device flag selects, as the port's wavefront step does."""
+    n_ops = len(ops)
+    kinds = torch.tensor([0 if k == "push" else 1 for k, _ in ops],
+                         dtype=torch.int32)
+    counts = torch.tensor([n for _, n in ops], dtype=torch.int32)
+    zero = torch.zeros((), dtype=torch.int32)
+    carry0 = (make_queue(cap, device="cpu"), zero, zero,
+              torch.full((n_ops, _W), EMPTY, dtype=torch.int32),
+              torch.zeros((n_ops, _W), dtype=torch.bool),
+              torch.zeros((n_ops, 3), dtype=torch.int32))
+
+    def step(carry):
+        q, i, counter, items_tr, valid_tr, cursor_tr = carry
+        n = counts[i]
+        is_push = kinds[i] == 0
+        lane = torch.arange(_W, dtype=torch.int32)
+        pushed = q.push(counter + lane, lane < n, backend="torch")
+        items, valid, claimed = q.pop_upto(_W, n)
+        q = tree_where(is_push, pushed, claimed)
+        items = torch.where(is_push, EMPTY, items)
+        valid = valid & ~is_push
+        counter = torch.where(is_push, counter + n, counter)
+        row = i.long()
+        items_tr, valid_tr, cursor_tr = (items_tr.clone(), valid_tr.clone(),
+                                         cursor_tr.clone())
+        items_tr[row] = items
+        valid_tr[row] = valid
+        cursor_tr[row] = torch.stack([q.head, q.tail, q.dropped])
+        return q, i + 1, counter, items_tr, valid_tr, cursor_tr
+
+    q, i, _, items_tr, valid_tr, cursor_tr = fused_drain_ref(
+        step, lambda c: c[1] < n_ops, carry0)
+    return q, i, items_tr, valid_tr, cursor_tr
+
+
+TAPES = {
+    # capacity 8, five width-4 pushes: 12 dropped, then FIFO claims
+    "saturating drops": (8, [("push", _W)] * 5 + [("claim", _W)] * 3),
+    "claim on empty": (8, [("claim", _W), ("push", 2), ("claim", _W),
+                           ("claim", _W)]),
+    # a ring of 4 lapped several times
+    "wraparound": (4, [op for n in (3, 4, 1, 2, 4, 3, 1, 4)
+                       for op in (("push", n), ("claim", n))]),
+}
+
+
+@pytest.mark.parametrize("tape", list(TAPES))
+def test_plain_fused_drain_matches_jax_on_claim_push_tapes(tape):
+    cap, ops = TAPES[tape]
+    jq, ji, jitems, jvalid, jcursors = _jax_tape(cap, ops)
+    tq, ti, titems, tvalid, tcursors = _port_tape(cap, ops)
+    assert int(ti) == int(ji) == len(ops)
+    for field in ("buf", "head", "tail", "dropped"):
+        _eq(getattr(tq, field), getattr(jq, field), field)
+    _eq(titems, jitems, "claimed items")
+    _eq(tvalid, jvalid, "claimed valid")
+    _eq(tcursors, jcursors, "cursors")
+    if tape == "saturating drops":
+        assert int(tq.dropped) == 5 * _W - cap
+        assert titems[5:][tvalid[5:]].tolist() == list(range(cap))
+    if tape == "claim on empty":
+        assert not tvalid[0].any() and not tvalid[3].any()
+        assert (titems[0] == EMPTY).all()
+
+
+def test_make_fused_drain_runs_any_like_shaped_carry():
+    run = make_fused_drain(lambda c: (c[0] + 1, c[1] + c[0]),
+                           lambda c: c[0] < 5,
+                           (torch.tensor(0), torch.tensor(0)))
+    for start in (0, 2, 7):
+        a, b = run((torch.tensor(start), torch.tensor(0)))
+        assert int(a) == max(start, 5)
+        assert int(b) == sum(range(start, 5))
+
+
+# ------------------- execute under single.megakernel vs JAX single.persistent
+def _run_both(jgraph, tgraph, granularity, params, **cfg_kw):
+    suffix = "" if granularity == 1 else f".g{granularity}"
+    base = dict(num_workers=16, fetch_size=4, **cfg_kw)
+    jcfg = j_config_for(JConfig(**base), j_parse("single.persistent" + suffix))
+    tcfg = config_for(SchedulerConfig(**base),
+                      parse_policy("single.megakernel" + suffix))
+    js, jstats, jinfo = j_execute(j_build("bfs", jgraph, jcfg, params=params),
+                                  jgraph, jcfg)
+    ts, tstats, tinfo = execute(build_program("bfs", tgraph, tcfg,
+                                              params=params), tgraph, tcfg)
+    np.testing.assert_array_equal(ts.dist.numpy(), np.asarray(js.dist))
+    for field in ("work", "splits", "rounds"):
+        assert int(getattr(ts.counter, field)) == int(
+            getattr(js.counter, field)), field
+    assert [int(x) for x in tstats] == [int(x) for x in jstats]
+    assert tinfo == {**jinfo, "launches": 1}
+    return tinfo
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("strategy", ["merge_path", "per_item"])
+def test_megakernel_bit_identical_to_jax_persistent(graphs, graph, g,
+                                                    strategy):
+    jgraph, tgraph = graphs[graph]
+    info = _run_both(jgraph, tgraph, g, {"source": 3, "strategy": strategy})
+    assert info["dropped"] == 0 and info["rounds"] > 1
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+def test_megakernel_truncation_matches_jax(graphs, graph):
+    """A work budget at the max degree re-queues truncated rows."""
+    jgraph, tgraph = graphs[graph]
+    max_degree = int(np.asarray(jgraph.degrees()).max())
+    _run_both(jgraph, tgraph, 1, {"source": 0, "work_budget": max_degree})
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_megakernel_max_rounds_cut_matches_jax(graphs, g):
+    jgraph, tgraph = graphs["grid2d(16,16)"]
+    info = _run_both(jgraph, tgraph, g, {"source": 0}, max_rounds=5)
+    assert info["rounds"] == 5
+
+
+@pytest.mark.parametrize("every", [1, 4, 64])
+def test_segmented_megakernel_drain_equals_the_whole(graphs, every):
+    """Segments with absolute round limits reproduce the uncut drain: the
+    queue, the state and both round counters."""
+    _, tgraph = graphs["rmat(8,8,1)"]
+    cfg = config_for(SchedulerConfig(num_workers=4, fetch_size=2),
+                     parse_policy("single.megakernel"))
+    program = build_program("bfs", tgraph, cfg, params={"source": 3})
+    whole = drain_setup(program, tgraph, cfg)
+    assert whole.kernel is None             # CPU tensors: the plain drain
+    want = megakernel_drive(whole.step, whole.cond, whole.carry)
+    cut = drain_setup(program, tgraph, cfg)
+    seg = megakernel_segment(cut.step, cut.cond, cut.carry)
+    carry, limit, segments = cut.carry, 0, 0
+    while bool(cut.cond(carry)):
+        limit += every
+        carry = seg(carry, limit)
+        segments += 1
+        assert int(carry[2]) == min(limit, int(want[2]))
+    assert segments == -(-int(want[2]) // every)
+    once = megakernel_drive(cut.step, cut.cond, cut.carry, limit=every)
+    assert int(once[2]) == min(every, int(want[2]))
+    for got, ref in ((carry[0].buf, want[0].buf), (carry[1].dist,
+                                                   want[1].dist)):
+        assert torch.equal(got, ref)
+    assert [int(x) for x in (carry[0].head, carry[0].tail, carry[0].dropped,
+                             carry[1].counter.work, carry[1].counter.rounds,
+                             carry[2], carry[3])] == \
+        [int(x) for x in (want[0].head, want[0].tail, want[0].dropped,
+                          want[1].counter.work, want[1].counter.rounds,
+                          want[2], want[3])]

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port: it imports neither JAX nor the reference
 package; its entry points run on the card unless the caller asks for the
 CPU; the ``"cuda"`` backend never runs on CPU tensors; unported cells and
-algorithms raise naming their ROADMAP item; ``chip_smoke.py`` fails, and
-prints no result, away from the repository."""
+algorithms raise naming their ROADMAP item; the megakernel cell runs the
+plain fused drain on CPU tensors; ``chip_smoke.py`` fails, and prints no
+result, away from the repository."""
 import ast
 import shutil
 import subprocess
@@ -83,6 +84,9 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+    from repro_torch.kernels.drain_loop.csr_stream import (
+        stream_row_slices_cuda)
     from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
     from repro_torch.kernels.queue_compact.kernel import compact_cuda
 
@@ -91,6 +95,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         compact_cuda(torch.zeros(4, dtype=torch.int32),
                      torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_row_slices_cuda(torch.zeros(4, dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32), 3)
+    g = tg.grid2d(3, 3, device="cpu")
+    cfg = config_for(SchedulerConfig(num_workers=2),
+                     parse_policy("single.megakernel"))
+    from repro_torch.runtime.api import drain_setup
+
+    setup = drain_setup(build_program("bfs", g, cfg), g, cfg)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bfs_drain_cuda(setup.carry, g.row_ptr, g.col_idx, wavefront=2,
+                       budget=8, max_rounds=10)
 
 
 def test_policy_matrix_parses_like_jax():
@@ -104,13 +120,47 @@ def test_policy_matrix_parses_like_jax():
 
 @pytest.mark.parametrize("policy,item", [
     ("fused.persistent", "A7"), ("sharded.discrete", "A12"),
-    ("single.megakernel", "A8")])
+    ("fused.megakernel", "A7")])
 def test_unported_cells_name_their_roadmap_item(policy, item):
     g = tg.grid2d(3, 3, device="cpu")
     cfg = config_for(SchedulerConfig(num_workers=2), parse_policy(policy))
     with pytest.raises(NotImplementedError, match=item):
         execute(build_program("bfs", g, SchedulerConfig(num_workers=2)), g,
                 cfg)
+
+
+def test_cpu_megakernel_is_the_plain_fused_drain_in_one_launch():
+    """On CPU tensors ``single.megakernel`` runs no kernel: the plain fused
+    drain over the megakernel body, equal to the persistent cell, reported
+    as one launch; asking for the kernels on CPU tensors raises."""
+    from repro_torch.core import persistent_drive
+    from repro_torch.kernels.drain_loop.kernel import fused_drain_ref
+    from repro_torch.runtime.api import drain_setup
+
+    g = tg.rmat(6, 8, seed=2, device="cpu")
+    cfg = config_for(SchedulerConfig(num_workers=8, fetch_size=2),
+                     parse_policy("single.megakernel"))
+    program = build_program("bfs", g, cfg, params={"source": 1})
+    state, stats, info = execute(program, g, cfg)
+    setup = drain_setup(program, g, cfg)
+    assert setup.kernel is None
+    queue, plain, rounds, processed = fused_drain_ref(setup.step, setup.cond,
+                                                      setup.carry)
+    assert torch.equal(state.dist, plain.dist)
+    assert [int(x) for x in stats] == [int(rounds), int(processed),
+                                       int(queue.dropped)]
+    assert info["launches"] == 1 and info["rounds"] == int(rounds) > 1
+    pcfg = config_for(SchedulerConfig(num_workers=8, fetch_size=2),
+                      parse_policy("single.persistent"))
+    psetup = drain_setup(program, g, pcfg)
+    pq, ps, pr, pp = persistent_drive(psetup.step, psetup.cond, psetup.carry)
+    assert torch.equal(pq.buf, queue.buf) and torch.equal(ps.dist, plain.dist)
+    assert [int(x) for x in (pq.head, pq.tail, pr, pp)] == \
+        [int(x) for x in (queue.head, queue.tail, rounds, processed)]
+    cuda_cfg = config_for(SchedulerConfig(num_workers=8, backend="cuda"),
+                          parse_policy("single.megakernel"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        execute(build_program("bfs", g, cuda_cfg), g, cuda_cfg)
 
 
 def test_unported_algorithms_and_trace_raise():
