@@ -35,7 +35,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      device ops per predicated step; then the megakernel drain beside the
      persistent one (persistent, megakernel, megakernel, persistent), B3's
      device time and the plain fused drain's at full size;
-  6. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+  6. time the flash-attention kernel (B5) at the LM path's per-layer shape,
+     its plain version and ``F.scaled_dot_product_attention`` (the library
+     call, timed here only; the port never calls it);
+  7. the LM serving path: minitron-4b at full width and depth in bf16 with
+     seeded random weights.  Prefill of 2 x 4096 tokens through
+     ``attn_impl="auto"`` must launch B5 exactly once per layer (32); its
+     logits at 64 seeded positions, the last positions and the first 32 of
+     sequence 0 are held, with the plain bf16 path's, against an f32
+     reference (the same weights upcast, plain path); an f32 prefill through
+     B5 must equal the f32 reference far more closely than a path with bf16
+     probabilities does.  32 decode steps through the cache replay sequence
+     0 against the same reference; the continuous-batching engine answers 8
+     requests in ``continuous`` and ``bsp`` mode with the schedule the same
+     request lengths give on the CPU at the smoke config; prefill, decode
+     and engine times;
+  8. print a ``{"kernels": [...]}`` line, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the reference package.  Big outputs
@@ -55,6 +70,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INF = 0x7FFFFFFF
 
 
@@ -88,7 +104,13 @@ def device_profile(fn, reps: int = 1):
     """``(device ms per call, [(device op, total ms, calls), ...])`` from
     torch.profiler's CUDA activity over ``reps`` calls, or ``(None, [])``
     when the profiler reports no device time.  A device op is a kernel, a
-    copy or a fill."""
+    copy or a fill.
+
+    The profiler may drop some of the records (on the H100 it kept 15 of
+    20 back-to-back launches of one kernel), so a call's time is each
+    op's mean recorded time times its launches per call (its recorded
+    count over ``reps``, rounded, at least 1), not the total over
+    ``reps``.  With ``reps == 1`` that is the total."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -99,8 +121,9 @@ def device_profile(fn, reps: int = 1):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    total = sum(ms for _, ms, _ in rows)
-    return (total / reps if total > 0 else None), rows
+    per_call = sum(ms / calls * max(1, round(calls / reps))
+                   for _, ms, calls in rows)
+    return (per_call if per_call > 0 else None), rows
 
 
 def max_abs_err(got, want) -> int:
@@ -235,11 +258,14 @@ def _wrappers() -> dict:
     from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
     from repro_torch.kernels.drain_loop.csr_stream import (
         stream_row_slices_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
     from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
     from repro_torch.kernels.queue_compact.kernel import compact_cuda
 
     return {"lbs": lbs_cuda, "compact": compact_cuda,
-            "csr_stream": stream_row_slices_cuda, "bfs_drain": bfs_drain_cuda}
+            "csr_stream": stream_row_slices_cuda, "bfs_drain": bfs_drain_cuda,
+            "flash_attention": flash_attention_cuda}
 
 
 def reset_counts() -> None:
@@ -324,7 +350,8 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
     units = int(bfs_drain_cuda.units_expanded)
     log(f"    counts={counts} info={info} units expanded={units} drain "
         f"{secs:.3f} s")
-    if counts != {"lbs": 0, "compact": 0, "csr_stream": 0, "bfs_drain": 1}:
+    if counts != {"lbs": 0, "compact": 0, "csr_stream": 0, "bfs_drain": 1,
+                  "flash_attention": 0}:
         raise AssertionError(f"expected exactly one BFS drain launch and no "
                              f"other, got {counts}")
     if units <= 0:
@@ -422,6 +449,418 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
                       "carry": carry_parts(carry_k)[1]}}
 
 
+# ------------------------------------------------------ B5, phases 3 and 6
+# (label, B, H, KVH, Sq, Skv, D, dtype, causal, window); the first is the
+# LM path's per-layer shape (minitron-4b prefill, B=2 x T=4096)
+FLASH_MAIN = ("minitron-4b layer", 2, 24, 8, 4096, 4096, 128,
+              torch.bfloat16, True, 0)
+FLASH_CASES = [
+    FLASH_MAIN,
+    ("h2o-danube-3-4b layer", 1, 32, 8, 8192, 8192, 120, torch.bfloat16,
+     True, 4096),
+    ("stablelm-1.6b layer (MHA)", 2, 32, 32, 4096, 4096, 64, torch.bfloat16,
+     True, 0),
+    ("JAX test 2x2x128 D128", 1, 2, 2, 128, 128, 128, torch.float32, True, 0),
+    ("JAX test 2x2x128 D128", 1, 2, 2, 128, 128, 128, torch.float32, False,
+     0),
+    ("JAX test 4x2x256 D128", 1, 4, 2, 256, 256, 128, torch.float32, True, 0),
+    ("JAX test 4x2x256 D128", 1, 4, 2, 256, 256, 128, torch.float32, False,
+     0),
+    ("JAX test 4x1x256 D256", 1, 4, 1, 256, 256, 256, torch.float32, True, 0),
+    ("JAX test 4x1x256 D256", 1, 4, 1, 256, 256, 256, torch.float32, False,
+     0),
+    ("Sq > Skv + window, fully masked rows", 2, 8, 2, 384, 128, 120,
+     torch.float32, True, 64),
+    ("Sq > Skv + window, fully masked rows", 2, 8, 2, 384, 128, 120,
+     torch.bfloat16, True, 64),
+]
+F32_TOL = 2e-5      # the JAX tests' tolerance for the Pallas kernel
+
+
+def flash_inputs(case, seed: int) -> tuple:
+    _, b, h, kvh, s_q, s_kv, d, dtype, _, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b * h, s_q, d), (b * kvh, s_kv, d),
+                               (b * kvh, s_kv, d)))
+
+
+def bf16_excess(got, want) -> torch.Tensor:
+    """How far each element of two bf16 results lies beyond one bf16 step
+    at the larger magnitude (<= 0 within one step)."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    return (got - want).abs() - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_flash() -> float:
+    """Phase 3 for B5: the kernel against ``attention_ref`` on the card.
+    f32 within F32_TOL; bf16: both sides round f32 math once, so every
+    element must lie within one bf16 step (plus 1e-6 where a row's sum
+    cancels to near zero).  Rows with no live key must give mean(v).
+    Returns the max |error| at the main shape."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    log(f"  B5 plain version in f32 with allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    main_err = None
+    for i, case in enumerate(FLASH_CASES):
+        label, b, h, kvh, s_q, s_kv, d, dtype, causal, window = case
+        q, k, v = flash_inputs(case, seed=i)
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            ok = err <= F32_TOL
+            rule = f"<= {F32_TOL}"
+        else:
+            excess = float(bf16_excess(got, want).max())
+            ok = excess <= 1e-6
+            rule = (f"within one bf16 step everywhere (excess {excess:.3g}), "
+                    f"{float((got != want).float().mean()):.3%} of elements "
+                    f"differ")
+        dead = s_kv + window - 1 if window else s_q
+        if dead < s_q:
+            mean_v = v.float().mean(dim=1).repeat_interleave(h // kvh, dim=0)
+            mean_err = float((got[:, dead:].float()
+                              - mean_v[:, None]).abs().max())
+            ok = ok and mean_err <= (F32_TOL if dtype == torch.float32
+                                     else 2 ** -7)
+            rule += f"; rows {dead}.. equal mean(v) within {mean_err:.3g}"
+        log(f"  B5 flash_attention {label}: B={b} H={h} KVH={kvh} Sq={s_q} "
+            f"Skv={s_kv} D={d} {str(dtype)[6:]} causal={causal} "
+            f"window={window}: max_abs_err={err:.3g} {rule}")
+        if not ok:
+            raise AssertionError(f"flash attention kernel disagrees with "
+                                 f"attention_ref: {label}")
+        if case is FLASH_MAIN:
+            main_err = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def flash_bound() -> tuple:
+    """(bound ms, bound_by) of one call at the main shape (bf16, causal,
+    Sq == Skv): flops 4 B H D S(S+1)/2 at the bf16 tensor-core peak
+    against q, k, v read and o written once."""
+    _, b, h, kvh, s, _, d, _, _, _ = FLASH_MAIN
+    flops = 4 * b * h * d * s * (s + 1) // 2
+    nbytes = 2 * d * s * (2 * b * h + 2 * b * kvh)
+    ms_ops, ms_bytes = 1e3 * flops / BF16_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    return ((ms_ops, "operations") if ms_ops >= ms_bytes
+            else (ms_bytes, "bytes"))
+
+
+def time_flash() -> dict:
+    """Phase 6: B5, its plain version and SDPA (enable_gqa) at the main
+    shape, by profiler device time over 20 calls and between CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    _, b, h, kvh, s, _, d, _, causal, window = FLASH_MAIN
+    q, k, v = flash_inputs(FLASH_MAIN, seed=0)
+    q4, k4, v4 = (x.view(b, -1, x.shape[1], d) for x in (q, k, v))
+    fns = [lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window),
+           lambda: attention_ref(q, k, v, causal=causal, window=window),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  enable_gqa=True)]
+    lib = fns[2]().view(b * h, s, d)
+    lib_err = float((lib.float() - fns[0]().float()).abs().max())
+    profiles = [device_profile(fn, reps=20) for fn in fns]
+    by_profiler = [ms for ms, _ in profiles]
+    by_events = [cuda_ms(fn, reps=20) for fn in fns]
+    timed_by = "profiler device time"
+    if None in by_profiler:
+        by_profiler, timed_by = by_events, "cuda events"
+    bound, bound_by = flash_bound()
+    return {"ms": by_profiler[0], "plain_ms": by_profiler[1],
+            "library_ms": by_profiler[2], "timed_by": timed_by,
+            "event_ms": by_events[0], "plain_event_ms": by_events[1],
+            "library_event_ms": by_events[2], "bound_ms": bound,
+            "bound_by": bound_by, "library_vs_kernel_max_abs": lib_err,
+            "profiler_rows": [rows[:4] for _, rows in profiles]}
+
+
+# ------------------------------------------------------- phase 7, LM path
+LM_ARCH = "minitron-4b"
+LM_BATCH, LM_SEQ = 2, 4096
+DECODE_STEPS = 32
+#: kernel path error may be this many times the plain bf16 path's ...
+BF16_ERR_FACTOR = 1.25
+#: ... plus this many bf16 steps at the reference logits' largest
+#: magnitude: the logits come out of a bf16 product, whose rounding alone
+#: moves the largest ones by half a step
+BF16_ABS_STEPS = 1.0
+#: f32 prefill through B5: within this share of max |logit| of the f32 plain
+#: path, and at most F32_CONTROL_SHARE of the error of the same prefill with
+#: bf16 probabilities (``attn_impl="blocked"``), the negative control: a B5
+#: that computed its softmax or p @ v in bf16 would err like the control
+#: and fail the second test even where the first one let it through
+F32_REL = 1e-3
+F32_CONTROL_SHARE = 0.1
+
+
+def lm_positions(seed: int = 0) -> tuple:
+    """(batch index, position) pairs whose logits are kept: 64 seeded ones,
+    each sequence's last position, and the first DECODE_STEPS of
+    sequence 0 (the decode replay)."""
+    rng = np.random.default_rng(seed)
+    rows = list(rng.integers(0, LM_BATCH, 64))
+    cols = list(rng.integers(0, LM_SEQ, 64))
+    rows += list(range(LM_BATCH)) + [0] * DECODE_STEPS
+    cols += [LM_SEQ - 1] * LM_BATCH + list(range(DECODE_STEPS))
+    return (torch.tensor(rows, device="cuda"),
+            torch.tensor(cols, device="cuda"))
+
+
+def sampled_prefill(params, cfg, tokens, where, attn_impl: str) -> tuple:
+    """(f32 logits at ``where``, host seconds, B5 launches) of one prefill;
+    the full logits are dropped at once (8.4 GB in f32)."""
+    from repro_torch.models import transformer as T
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = T.prefill(params, cfg, {"tokens": tokens}, LM_SEQ,
+                       attn_impl=attn_impl)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    if not torch.isfinite(logits).all() or logits.shape != (
+            LM_BATCH, LM_SEQ, cfg.vocab_size):
+        raise AssertionError(f"prefill ({attn_impl}, {logits.dtype}) gave "
+                             f"non-finite logits or shape "
+                             f"{tuple(logits.shape)}")
+    kept = logits[where].float()
+    del logits
+    torch.cuda.empty_cache()
+    others = {k: n for k, n in counts.items() if k != "flash_attention"}
+    if any(others.values()):
+        raise AssertionError(f"the LM prefill launched graph kernels: "
+                             f"{counts}")
+    return kept, secs, counts["flash_attention"]
+
+
+def smoke_schedule(requests) -> dict:
+    """The engine's schedule for these request lengths at the smoke
+    config on the CPU: (wavefronts, mean occupancy) per mode.  The
+    schedule depends only on the lengths, so tokens are taken modulo the
+    smoke vocabulary."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    cfg = smoke_config(LM_ARCH)
+    params = init_params(T.model_spec(cfg), 0, torch.float32, device="cpu")
+    small = [Request(r.uid, [int(t) % cfg.vocab_size for t in r.prompt],
+                     r.max_new_tokens) for r in requests]
+    out = {}
+    for mode in ("continuous", "bsp"):
+        st = ContinuousBatchingEngine(cfg, params, num_slots=4, max_len=64,
+                                      mode=mode).run(small)["stats"]
+        out[mode] = (st.wavefronts, st.mean_occupancy)
+    return out
+
+
+def lm_path(card: str) -> dict:
+    """Phase 7; returns what the summary and the kernels line need."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(T.model_spec(cfg), 0, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"    {LM_ARCH}: {cfg.param_count()} parameters, {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} q / "
+        f"{cfg.num_kv_heads} kv heads of {cfg.hd}, vocab {cfg.vocab_size}; "
+        f"bf16 weights made on the card in {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=g, device="cuda")
+    where = lm_positions()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: bf16 prefill through B5, counts set to 0 just before
+    got, secs_cold, launches = sampled_prefill(params, cfg, tokens, where,
+                                               "auto")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"expected one B5 launch per layer "
+                             f"({cfg.num_layers}), got {launches}")
+    _, secs_warm, _ = sampled_prefill(params, cfg, tokens, where, "auto")
+    plain, secs_plain, plain_launches = sampled_prefill(params, cfg, tokens,
+                                                        where, "torch")
+    if plain_launches:
+        raise AssertionError("attn_impl='torch' launched B5")
+    log(f"    bf16 prefill {LM_BATCH}x{LM_SEQ} through B5: {launches} B5 "
+        f"launches; cold {secs_cold:.3f} s, warm {secs_warm:.3f} s "
+        f"({LM_BATCH * LM_SEQ / secs_warm:.0f} tokens/s); plain path "
+        f"{secs_plain:.3f} s  [{card}]")
+
+    params32 = tree_map(lambda a: a.float(), params)
+    ref, secs_ref, _ = sampled_prefill(params32, cfg, tokens, where, "torch")
+    got32, secs_k32, launches32 = sampled_prefill(params32, cfg, tokens,
+                                                  where, "auto")
+    control, _, _ = sampled_prefill(params32, cfg, tokens, where, "blocked")
+    del params32
+    torch.cuda.empty_cache()
+    if launches32 != cfg.num_layers:
+        raise AssertionError(f"f32 prefill: {launches32} B5 launches")
+
+    scale = float(ref.abs().max())
+    abs_term = BF16_ABS_STEPS * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    err_k = float((got - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    limit = BF16_ERR_FACTOR * err_p + abs_term
+    log(f"    bf16 logits vs the f32 reference at {where[0].numel()} "
+        f"positions (max |logit| {scale:.4g}): kernel path {err_k:.4g}, "
+        f"plain path {err_p:.4g}; limit {BF16_ERR_FACTOR} x plain + "
+        f"{abs_term:.4g} = {limit:.4g}")
+    if not err_k <= limit:
+        raise AssertionError(f"bf16 kernel-path logits err {err_k} > {limit}")
+    err_32 = float((got32 - ref).abs().max())
+    err_ctl = float((control - ref).abs().max())
+    log(f"    f32 prefill through B5 vs f32 plain: {err_32:.4g} "
+        f"({err_32 / scale:.3g} of max |logit|; limit {F32_REL}); bf16-"
+        f"probability control (blocked) {err_ctl:.4g}; limit "
+        f"{F32_CONTROL_SHARE} x control = {F32_CONTROL_SHARE * err_ctl:.4g}")
+    if not (err_32 <= F32_REL * scale
+            and err_32 <= F32_CONTROL_SHARE * err_ctl):
+        raise AssertionError(f"f32 kernel-path logits err {err_32}: limits "
+                             f"{F32_REL * scale}, {F32_CONTROL_SHARE * err_ctl}")
+
+    # decode: replay the first DECODE_STEPS tokens of sequence 0
+    reset_counts()
+    cache = T.init_cache(cfg, 1, DECODE_STEPS, torch.bfloat16, device="cuda")
+    first = len(where[0]) - DECODE_STEPS
+    plain_err_0 = float((plain[first:] - ref[first:]).abs().max())
+    dec_limit = BF16_ERR_FACTOR * plain_err_0 + abs_term
+    dec_errs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        logits, cache = T.decode_step(params, cfg, cache, tokens[:1, t:t + 1])
+        dec_errs.append(float((logits[0].float() - ref[first + t]).abs()
+                              .max()))
+    secs_dec = time.perf_counter() - t0
+    if any(read_counts().values()):
+        raise AssertionError(f"decode launched a kernel: {read_counts()}")
+    log(f"    {DECODE_STEPS} decode steps through the bf16 cache vs the f32 "
+        f"reference at the same positions: max err {max(dec_errs):.4g} "
+        f"(limit {BF16_ERR_FACTOR} x plain prefill's {plain_err_0:.4g} + "
+        f"{abs_term:.4g} = {dec_limit:.4g}); "
+        f"{1e3 * secs_dec / DECODE_STEPS:.2f} ms per step (B=1, "
+        f"logit checks included)  [{card}]")
+    if not max(dec_errs) <= dec_limit:
+        raise AssertionError(f"decode logits err {max(dec_errs)} > "
+                             f"{dec_limit}")
+    # one more step under the profiler: its device time over its wall time
+    held = {}
+
+    def one_step():
+        t1 = time.perf_counter()
+        T.decode_step(params, cfg, cache, tokens[:1, :1])
+        torch.cuda.synchronize()
+        held["secs"] = time.perf_counter() - t1
+
+    dec_dev_ms, dec_rows = device_profile(one_step)
+    dec_ops = sum(calls for _, _, calls in dec_rows)
+    log(f"    one decode step under the profiler: {1e3 * held['secs']:.2f} ms "
+        f"wall, {dec_dev_ms} ms device time in {dec_ops} device ops, busy "
+        f"share {None if dec_dev_ms is None else dec_dev_ms / (1e3 * held['secs'])}"
+        f"  [{card}]")
+
+    # serving: the engine over the reference's synthetic requests
+    requests = synthetic_requests(8, cfg.vocab_size, seed=0)
+    want_schedule = smoke_schedule(requests)
+    engine = {}
+    for mode in ("continuous", "bsp"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ContinuousBatchingEngine(cfg, params, num_slots=4, max_len=64,
+                                       mode=mode, dtype=torch.bfloat16
+                                       ).run(requests)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = res["stats"]
+        steps = st.wavefronts + sum(len(r.prompt) - 1 for r in requests)
+        tokens_out = sum(len(v) for v in res["outputs"].values())
+        engine[mode] = {"wavefronts": st.wavefronts,
+                        "mean_occupancy": st.mean_occupancy,
+                        "completed": st.completed, "seconds": secs,
+                        "decode_steps": steps, "tokens": tokens_out,
+                        "ms_per_step": 1e3 * secs / steps,
+                        "tokens_per_s": tokens_out / secs}
+        log(f"    engine {mode}: {st.completed} requests, {tokens_out} "
+            f"tokens, {st.wavefronts} wavefronts (CPU smoke schedule "
+            f"{want_schedule[mode][0]}), mean occupancy "
+            f"{st.mean_occupancy:.4f} ({want_schedule[mode][1]:.4f}); "
+            f"{secs:.3f} s, {1e3 * secs / steps:.2f} ms per decode step "
+            f"({steps} steps incl. prompt replay), "
+            f"{tokens_out / secs:.1f} tokens/s  [{card}]")
+        if any(len(res["outputs"][r.uid]) != r.max_new_tokens
+               for r in requests) or st.completed != len(requests):
+            raise AssertionError(f"engine {mode}: a request did not get "
+                                 f"its max_new_tokens")
+        if (st.wavefronts, st.mean_occupancy) != want_schedule[mode]:
+            raise AssertionError(f"engine {mode} schedule differs from the "
+                                 f"CPU smoke schedule {want_schedule[mode]}")
+    if not engine["continuous"]["wavefronts"] < engine["bsp"]["wavefronts"]:
+        raise AssertionError("continuous batching took no fewer wavefronts "
+                             "than bsp")
+
+    # where a warm prefill's device time goes: B5, the other kernels, and
+    # the logits product alone
+    dev_ms, rows = device_profile(
+        lambda: T.prefill(params, cfg, {"tokens": tokens}, LM_SEQ))
+    b5_ms = sum(ms for key, ms, _ in rows if "flash_fwd" in key)
+    gemm_ms = sum(ms for key, ms, _ in rows
+                  if any(w in key.lower() for w in ("gemm", "xmma", "cutlass",
+                                                    "nvjet")))
+    h = torch.randn(LM_BATCH, LM_SEQ, cfg.d_model, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    logits_ms = cuda_ms(lambda: h @ params["embed"]["head"], reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"    warm prefill under the profiler: {dev_ms} ms device time; B5 "
+        f"{b5_ms:.2f} ms, matrix-product kernels {gemm_ms:.2f} ms (the "
+        f"logits product alone {logits_ms:.2f} ms by CUDA events); peak "
+        f"memory {peak / 2 ** 30:.1f} GiB; top device ops (ms, calls):")
+    for key, ms, calls in rows[:8]:
+        log(f"      {ms:10.3f} {calls:7d}  {key[:90]}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_seconds": {
+                "cold": secs_cold, "warm": secs_warm, "plain": secs_plain,
+                "f32_plain": secs_ref, "f32_kernel": secs_k32},
+            "tokens_per_s": LM_BATCH * LM_SEQ / secs_warm,
+            "errors": {"bf16_kernel": err_k, "bf16_plain": err_p,
+                       "bf16_limit": limit, "f32_kernel": err_32,
+                       "f32_control": err_ctl, "max_logit": scale,
+                       "decode": dec_errs, "decode_limit": dec_limit},
+            "decode_ms_per_step": 1e3 * secs_dec / DECODE_STEPS,
+            "decode_profiled": {"seconds": held["secs"],
+                                "device_ms": dec_dev_ms,
+                                "device_ops": dec_ops,
+                                "rows": dec_rows[:10]},
+            "engine": engine, "cpu_schedule": want_schedule,
+            "profile": {"device_ms": dev_ms, "b5_ms": b5_ms,
+                        "gemm_ms": gemm_ms, "logits_ms": logits_ms,
+                        "rows": rows[:20]},
+            "peak_bytes": peak}
+
+
 def check_guard(dev) -> None:
     """The persistent driver's no-sync guard must really raise on a sync."""
     from repro_torch.core import no_host_sync
@@ -499,6 +938,8 @@ def main() -> int:
     n_push = budget + cfg.wavefront
     (items, mask), compact_err = check_compact(n_push, dev, rng)
     main_starts, stream_err = check_stream(graph, dev, rng)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash_err = check_flash()
 
     log(f"[4] main path: BFS rmat({args.scale}) single.persistent g1 "
         f"merge_path backend=auto")
@@ -509,7 +950,7 @@ def main() -> int:
     steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
     log(f"    counts={counts} info={info} drain {secs:.3f} s")
     if counts != {"lbs": steps, "compact": steps + 1, "csr_stream": 0,
-                  "bfs_drain": 0}:
+                  "bfs_drain": 0, "flash_attention": 0}:
         raise AssertionError(f"expected one LBS and one compaction launch "
                              f"per predicated step ({steps}) plus the seed "
                              f"push's compaction, and no other, got {counts}")
@@ -703,6 +1144,21 @@ def main() -> int:
         f"{mega['grid_seconds']:.3f} s, {mega['grid_info']['rounds']} "
         f"rounds  [{card}]")
 
+    log(f"[6] B5 flash attention at the LM path's per-layer shape "
+        f"{FLASH_MAIN[1:7]} bf16 causal  [{card}]")
+    flash = time_flash()
+    log(f"    kernel {flash['ms']:.4f} ms, plain {flash['plain_ms']:.4f} ms, "
+        f"F.scaled_dot_product_attention {flash['library_ms']:.4f} ms by "
+        f"{flash['timed_by']}; bound {flash['bound_ms']:.4f} ms "
+        f"({flash['bound_by']}); between events {flash['event_ms']:.4f}, "
+        f"{flash['plain_event_ms']:.4f}, {flash['library_event_ms']:.4f} ms;"
+        f" SDPA vs kernel max |diff| {flash['library_vs_kernel_max_abs']:.3g}"
+        f"  [{card}]")
+
+    log(f"[7] LM serving path: {LM_ARCH} at full width and depth, bf16, "
+        f"device=cuda, attn_impl=auto")
+    lm = lm_path(card)
+
     sources = {"lbs": ("src/repro_torch/csrc/lbs.cu",
                        "src/repro/kernels/frontier_expand/kernel.py:59",
                        lbs_err,
@@ -747,7 +1203,21 @@ def main() -> int:
         "rounds": rounds, "units_expanded": mega["units"],
         "shape": f"rmat({args.scale}) drain, W={cfg.wavefront}, budget "
                  f"{budget}, queue int32[{4 * graph.num_vertices}]"})
-    for kern in kernels[:-1]:
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+        "launches": lm["launches"], "max_abs_err": flash_err,
+        "tolerance": "bf16: within one bf16 step of attention_ref; f32: 2e-5",
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"], "timed_by": flash["timed_by"],
+        "event_ms": flash["event_ms"],
+        "plain_event_ms": flash["plain_event_ms"],
+        "library_event_ms": flash["library_event_ms"],
+        "shape": "q bf16[48, 4096, 128], k/v bf16[16, 4096, 128], causal "
+                 "(minitron-4b layer, B=2 x T=4096)"})
+    for kern in kernels[:3]:
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
             f"{kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
             f"bound {kern['bound_ms']:.4f}; between events {kern['event_ms']:.4f}, "
@@ -776,11 +1246,13 @@ def main() -> int:
                        "grid_info": mega["grid_info"],
                        "grid_seconds": mega["grid_seconds"],
                        "small": mega["small"]},
+        "flash_attention": flash,
+        "lm": lm,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
-    log(f"[6] chip_smoke.py took {summary['script_seconds']:.1f} s  [{card}]")
+    log(f"[8] chip_smoke.py took {summary['script_seconds']:.1f} s  [{card}]")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,0 +1,7 @@
+"""qwen1.5-110b [dense] — QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-110b", family="dense", num_layers=80, d_model=8192,
+    num_heads=64, num_kv_heads=8, d_ff=49152, vocab_size=152064,
+    head_dim=128, qkv_bias=True)

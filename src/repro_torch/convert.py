@@ -3,7 +3,8 @@
 The reference keeps its graphs, queues and BFS states as pytrees of
 arrays; ``np.asarray`` of each leaf hands them to these constructors, and
 :func:`to_numpy` hands the port's objects back.  The tests use this to
-give both packages the same graph and the same mid-drain queue and state.
+give both packages the same graph, the same mid-drain queue and state, and
+the same model weights (``params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from .core.tree import to_numpy
 from .graph.csr import CSRGraph
 
 __all__ = ["graph_from_numpy", "queue_from_numpy", "bfs_state_from_numpy",
-           "to_numpy"]
+           "params_from_numpy", "to_numpy"]
 
 
 def _int32(x, device) -> torch.Tensor:
@@ -45,3 +46,21 @@ def bfs_state_from_numpy(dist, work, splits, rounds,
                     counter=WorkCounter(work=_int32(work, device),
                                         splits=_int32(splits, device),
                                         rounds=_int32(rounds, device)))
+
+
+def _tensor(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+        return torch.from_numpy(x.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(x)).to(device)  # a writable copy
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The reference's parameter pytree, leaves as numpy arrays (for
+    example ``jax.tree.map(np.asarray, params)``), as the port's nested dict
+    of tensors on ``device``, each leaf in its own type."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(tree[k], device) for k in sorted(tree)}
+    return _tensor(tree, device)

@@ -10,6 +10,8 @@ drain_loop      -- B3, speculative BFS's whole drain in one cooperative
                    launch (``kernel="megakernel"`` on CUDA tensors), its
                    generic plain version ``fused_drain_ref``, and B4, the
                    double-buffered row-slice stream B3 stages through
+flash_attention -- B5, causal / sliding-window GQA attention; hot path of
+                   ``models.layers.apply_attention`` at prefill
 
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors.  Libraries are built by nvcc at first launch

@@ -1,6 +1,7 @@
 """The PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version at the main path's shapes and edge sizes, and BFS through both
-kernels against the plain backend, bit for bit.
+version at the main path's shapes and edge sizes, BFS through both kernels
+against the plain backend, bit for bit, and the flash-attention kernel B5
+against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -266,3 +267,114 @@ def test_megakernel_without_a_drain_kernel_raises_on_cuda(policy, params,
         execute(build_program("bfs", g, cfg, params=params), g, cfg)
     with pytest.raises(NotImplementedError, match="A6"):
         build_program("coloring", g, cfg)
+
+
+# ------------------------------------------------ B5, flash attention
+# (bh, bkv, s_q, s_kv, d, causal, window): the JAX tests' f32 shapes, the
+# head dims 64 / 120 / 128 / 256, a window, and Sq > Skv + window, whose
+# rows 191..255 have no live key and must give the mean of v
+FLASH_CASES = [
+    (2, 2, 128, 128, 128, True, 0), (2, 2, 128, 128, 128, False, 0),
+    (4, 2, 256, 256, 128, True, 0), (4, 2, 256, 256, 128, False, 0),
+    (4, 1, 256, 256, 256, True, 0), (4, 1, 256, 256, 256, False, 0),
+    (4, 2, 256, 256, 64, True, 0), (8, 2, 384, 384, 120, True, 128),
+    (4, 2, 256, 256, 128, True, 64), (4, 4, 512, 512, 64, False, 64),
+    (2, 1, 256, 128, 64, True, 64), (2, 1, 384, 128, 120, False, 64),
+]
+
+
+def _flash_inputs(seed, bh, bkv, s_q, s_kv, d, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((bh, s_q, d), (bkv, s_kv, d), (bkv, s_kv, d))]
+
+
+@pytest.mark.parametrize("bh,bkv,s_q,s_kv,d,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_f32(bh, bkv, s_q, s_kv, d,
+                                                  causal, window):
+    """f32 within 2e-5, the JAX tests' tolerance for the Pallas kernel."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(d + s_q, bh, bkv, s_q, s_kv, d, torch.float32)
+    before = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    if window and s_q > s_kv + window:
+        dead = s_kv + window - 1
+        mean_v = v.mean(dim=1).repeat_interleave(bh // bkv, dim=0)
+        torch.testing.assert_close(out[:, dead:], mean_v[:, None].expand(
+            -1, s_q - dead, -1), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d,window", [(128, 0), (120, 256), (64, 0)])
+def test_flash_attention_kernel_bf16_within_one_step(d, window):
+    """bf16: kernel and plain version both round f32 math once; they may
+    differ by one bf16 step (plus 1e-6 near zero) on a few elements."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _flash_inputs(d, 8, 2, 1024, 1024, d, torch.bfloat16)
+    out = flash_attention_cuda(q, k, v, causal=True, window=window).float()
+    want = attention_ref(q, k, v, causal=True, window=window).float()
+    mag = torch.maximum(out.abs(), want.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    off = (out - want).abs()
+    assert bool((off <= step + 1e-6).all()), float((off - step).max())
+    assert float((off > 0).float().mean()) <= 1e-2
+
+
+def test_flash_attention_through_the_model_layout():
+    """multihead_attention(impl="auto") on CUDA tensors launches B5 once
+    and equals the plain einsum attention of the model layer."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import multihead_attention
+    from repro_torch.models.layers import _sdpa_xla
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(1, 256, 6, 128, generator=g, device="cuda")
+    k = torch.randn(1, 256, 2, 128, generator=g, device="cuda")
+    v = torch.randn(1, 256, 2, 128, generator=g, device="cuda")
+    before = flash_attention_cuda.launches
+    out = multihead_attention(q, k, v, causal=True, window=0, impl="auto")
+    assert flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out, _sdpa_xla(q, k, v, causal=True, window=0),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_lm_prefill_goes_through_b5_and_matches_the_plain_path():
+    """Smoke minitron-4b in f32 on the card: prefill with attn_impl auto
+    launches B5 once per layer and equals the plain einsum path; decode
+    steps through the cache equal the prefill's logits."""
+    _require_cuda()
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("minitron-4b")
+    params = init_params(T.model_spec(cfg), 0, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                         device="cuda")
+    before = flash_attention_cuda.launches
+    got = T.prefill(params, cfg, {"tokens": toks}, 128)
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    want = T.prefill(params, cfg, {"tokens": toks}, 128, attn_impl="torch")
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    cache = T.init_cache(cfg, 2, 8, torch.float32)
+    for t in range(8):
+        logits, cache = T.decode_step(params, cfg, cache, toks[:, t:t + 1])
+        torch.testing.assert_close(logits, want[:, t], atol=1e-4, rtol=0)
