@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      per source, all at once) and print ptxas's register / shared-memory /
      spill report;
   3. hold each kernel bit-equal to its plain PyTorch version on the card, at
-     the main path's shapes and at edge sizes;
+     the main path's shapes and at edge sizes; the ordered scatter-add
+     bit-equal to the CPU's sequential sum at a PageRank round's shape and
+     on one index repeated 1e5 times;
   4. the main path: speculative BFS on ``rmat(scale, 16)`` under
      ``single.persistent`` at granularity 1, merge-path expansion, backend
      ``auto`` (the kernels), from the highest-degree vertex.  Distances
@@ -27,6 +29,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      rounds equals the whole; ``grid2d`` at g1 equals scipy; and at a scale
      where the plain stream's [W, budget] slices stay under 1 GB the kernel
      drain equals the plain fused drain (``backend="torch"``);
+  4c. PageRank (damping 0.85, eps 1e-6, check_size 64) on the same graph
+     under ``single.persistent`` through B1, B2 and the ordered
+     scatter-add, then ``single.megakernel`` as one launch of B3-pr and no
+     other: converged (max residue <= eps, no drop), the push invariant
+     within its float32 bound, within 1e-3 of a float64 power iteration;
+     rank, residue, presence bits, counters, RunStats and the final queue
+     bitwise equal between the two cells; 64-round segments equal the
+     whole; at rmat(14) the kernel drain equals the plain drain run on the
+     CPU bit for bit; drains timed in turn (persistent, megakernel,
+     megakernel, persistent), B3-pr's device time, busy shares, and the
+     first 64 rounds against the plain fused drain on the card;
+  4d. coloring on the same graph likewise: persistent (backends auto and
+     torch, bitwise equal; valid, checked on the card), megakernel as one
+     launch of B3-col equal to it, queue and counters included; segments;
+     at rmat(14) the kernel drain equals the plain fused drain;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events -- and the main drain
@@ -256,16 +273,25 @@ def check_stream(graph, dev, rng) -> tuple:
 # ------------------------------------------------------------ phase 4
 def _wrappers() -> dict:
     from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+    from repro_torch.kernels.drain_loop.coloring_drain import (
+        coloring_drain_cuda)
     from repro_torch.kernels.drain_loop.csr_stream import (
         stream_row_slices_cuda)
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
     from repro_torch.kernels.queue_compact.kernel import compact_cuda
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
 
     return {"lbs": lbs_cuda, "compact": compact_cuda,
             "csr_stream": stream_row_slices_cuda, "bfs_drain": bfs_drain_cuda,
-            "flash_attention": flash_attention_cuda}
+            "flash_attention": flash_attention_cuda,
+            "ordered_scatter_add": ordered_scatter_add_cuda,
+            "pagerank_drain": pagerank_drain_cuda,
+            "coloring_drain": coloring_drain_cuda}
 
 
 def reset_counts() -> None:
@@ -277,51 +303,16 @@ def read_counts() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
+def only(**launches) -> dict:
+    """The counts of a run that launched these kernels and no other."""
+    return {name: launches.get(name, 0) for name in _wrappers()}
+
+
 def drain(graph, cfg, source: int) -> tuple:
-    """One BFS drain through the public entry points; host-clock seconds
-    ending in a device synchronize."""
-    from repro_torch.runtime import build_program, execute
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    program = build_program("bfs", graph, cfg,
-                            params={"source": source,
-                                    "strategy": "merge_path"})
-    state, stats, info = execute(program, graph, cfg)
-    torch.cuda.synchronize()
-    return state, stats, info, time.perf_counter() - t0
-
-
-def carry_parts(carry) -> tuple:
-    """``([buf, dist], [head, tail, dropped, rounds, processed, work,
-    splits, counter rounds])`` of a drain carry, on the host."""
-    queue, state, rounds, processed = carry
-    return ([queue.buf.cpu(), state.dist.cpu()],
-            [int(x) for x in (queue.head, queue.tail, queue.dropped, rounds,
-                              processed, state.counter.work,
-                              state.counter.splits, state.counter.rounds)])
-
-
-def same_carry(a, b) -> bool:
-    (ta, sa), (tb, sb) = carry_parts(a), carry_parts(b)
-    return sa == sb and all(torch.equal(x, y) for x, y in zip(ta, tb))
-
-
-def kernel_drain(graph, cfg, source: int):
-    """``(carry0, final carry)`` of one drain through the megakernel cell's
-    drain kernel, set up with ``drain_setup`` so the final queue can be
-    compared; the launch runs with host syncs set to raise."""
-    from repro_torch.core import megakernel_drive, no_host_sync
-    from repro_torch.runtime import build_program
-    from repro_torch.runtime.api import drain_setup
-
-    setup = drain_setup(build_program("bfs", graph, cfg,
-                                      params={"source": source}), graph, cfg)
-    with no_host_sync(graph.device):
-        carry = megakernel_drive(setup.step, setup.cond, setup.carry,
-                                 kernel=setup.kernel)
-    torch.cuda.synchronize()
-    return setup, carry
+    """One BFS drain (merge-path, from ``source``) through the public entry
+    points: ``run_algo``'s state, RunStats, info and seconds."""
+    return run_algo("bfs", graph, cfg, {"source": source,
+                                        "strategy": "merge_path"})
 
 
 def check_megakernel(graph, grid, source: int, persistent: tuple,
@@ -330,13 +321,10 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
     """Phase 4b: the megakernel path against scipy, the persistent drain,
     itself cut into segments, and the plain fused drain."""
     from repro_torch.algorithms.common import default_work_budget
-    from repro_torch.core import (SchedulerConfig, megakernel_drive,
-                                  megakernel_segment, no_host_sync,
-                                  persistent_drive)
+    from repro_torch.core import SchedulerConfig
     from repro_torch.graph import rmat
     from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
-    from repro_torch.runtime import build_program, config_for, parse_policy
-    from repro_torch.runtime.api import drain_setup
+    from repro_torch.runtime import config_for, parse_policy
 
     def config(policy, **kw):
         return config_for(SchedulerConfig(num_workers=1024, fetch_size=4,
@@ -350,8 +338,7 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
     units = int(bfs_drain_cuda.units_expanded)
     log(f"    counts={counts} info={info} units expanded={units} drain "
         f"{secs:.3f} s")
-    if counts != {"lbs": 0, "compact": 0, "csr_stream": 0, "bfs_drain": 1,
-                  "flash_attention": 0}:
+    if counts != only(bfs_drain=1):
         raise AssertionError(f"expected exactly one BFS drain launch and no "
                              f"other, got {counts}")
     if units <= 0:
@@ -373,29 +360,19 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
         "the persistent drain's")
 
     # the final queue: both drains set up by hand so the carry comes back
-    cfg_p = config("single.persistent")
-    setup_p = drain_setup(build_program("bfs", graph, cfg_p,
-                                        params={"source": source}),
-                          graph, cfg_p)
-    carry_p = persistent_drive(setup_p.step, setup_p.cond, setup_p.carry)
-    setup_m, carry_m = kernel_drain(graph, cfg_m, source)
-    if not same_carry(carry_m, carry_p):
+    params = {"source": source}
+    carry_p, _ = drive("bfs", graph, config("single.persistent"), params)
+    carry_m, _ = drive("bfs", graph, cfg_m, params)
+    if not same_leaves(carry_m, carry_p):
         raise AssertionError(f"megakernel carry differs from the persistent "
-                             f"one: {carry_parts(carry_m)[1]} vs "
-                             f"{carry_parts(carry_p)[1]}")
+                             f"one: {scalars(carry_m)} vs "
+                             f"{scalars(carry_p)}")
     log(f"    final queue, dist and counters equal the persistent drain's: "
         f"(head, tail, dropped, rounds, processed, work, splits, counter "
-        f"rounds) = {carry_parts(carry_m)[1]}")
+        f"rounds) = {scalars(carry_m)}")
 
-    seg = megakernel_segment(setup_m.step, setup_m.cond, setup_m.carry,
-                             kernel=setup_m.kernel)
-    carry, limit, segments = setup_m.carry, 0, 0
-    while bool(setup_m.cond(carry)):
-        limit += 64
-        with no_host_sync(graph.device):
-            carry = seg(carry, limit)
-        segments += 1
-    if not same_carry(carry, carry_m):
+    carry, segments = segmented("bfs", graph, cfg_m, 64, params)
+    if not same_leaves(carry, carry_m):
         raise AssertionError("the drain cut into 64-round segments differs "
                              "from the whole drain")
     log(f"    {segments} segments of 64 rounds equal the whole drain")
@@ -421,32 +398,635 @@ def check_megakernel(graph, grid, source: int, persistent: tuple,
     slice_bytes = 4 * cfg_k.wavefront * small_budget
     if slice_bytes >= 2 ** 30:
         raise AssertionError(f"the plain stream would hold {slice_bytes} B")
-    _, carry_k = kernel_drain(small, cfg_k, small_source)
-    setup_t = drain_setup(build_program("bfs", small, cfg_t,
-                                        params={"source": small_source}),
-                          small, cfg_t)
-    if setup_t.kernel is not None:
-        raise AssertionError("backend='torch' picked the drain kernel")
+    small_params = {"source": small_source}
+    carry_k, _ = drive("bfs", small, cfg_k, small_params)
     reset_counts()
-    carry_t = megakernel_drive(setup_t.step, setup_t.cond, setup_t.carry)
+    carry_t, _ = drive("bfs", small, cfg_t, small_params)
     if any(read_counts().values()):
         raise AssertionError(f"the plain fused drain launched a kernel: "
                              f"{read_counts()}")
-    if not same_carry(carry_k, carry_t) or not np.array_equal(
+    if not same_leaves(carry_k, carry_t) or not np.array_equal(
             carry_k[1].dist.cpu().numpy(), host_bfs(small, small_source)):
         raise AssertionError("at the small scale the drain kernel differs "
                              "from the plain fused drain or from scipy")
     log(f"    rmat({small_scale}) W={cfg_k.wavefront} budget={small_budget} "
         f"(plain slices {slice_bytes / 2 ** 20:.0f} MiB): the drain kernel "
         f"equals the plain fused drain (backend=torch) and scipy; "
-        f"{carry_parts(carry_k)[1]}")
+        f"{scalars(carry_k)}")
     return {"state": state, "stats": stats, "info": info, "seconds": secs,
             "counts": counts, "units": units, "carry": carry_m,
             "segments": segments, "grid_info": info_g,
             "grid_seconds": secs_g, "grid_counts": counts_g,
             "small": {"scale": small_scale, "budget": small_budget,
                       "wavefront": cfg_k.wavefront,
-                      "carry": carry_parts(carry_k)[1]}}
+                      "carry": scalars(carry_k)}}
+
+
+# --------------------------------------- phases 3, 4c and 4d: PageRank and
+# coloring (the ordered scatter-add, B3-pr and B3-col)
+U32 = 2.0 ** -24                   # float32 unit roundoff
+PR_PARAMS = {"damping": 0.85, "eps": 1e-6, "check_size": 64}
+FIRST_ROUNDS = 64                  # rounds of the kernel-vs-plain timing
+
+
+def check_scatter(graph, budget: int, rng) -> tuple:
+    """The ordered scatter-add against the CPU's sequential sum
+    (``index_add_`` on CPU tensors), bitwise: at a PageRank round's shape
+    (``budget`` updates, the edges of consecutive rows, into n slots; the
+    last tenth idle lanes adding +0.0 at ``lane % n``) and on one index
+    repeated 1e5 times at mixed magnitudes.  The plain version on CUDA
+    tensors (deterministic ``index_put_``) is reported beside it.  Returns
+    the main inputs, the kernel's largest error over the cases, and the
+    plain version's report."""
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+    from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
+
+    n, m = graph.num_vertices, graph.num_edges
+    start = int(rng.integers(0, max(m - budget, 1)))
+    index = graph.col_idx[start:start + budget].clone()
+    k = index.shape[0]
+    idle = k // 10
+    lanes = torch.arange(k, dtype=torch.int32, device="cuda")
+    index[k - idle:] = lanes[k - idle:] % n
+    values = torch.as_tensor(rng.random(k).astype(np.float32) * 1e-3,
+                             device="cuda")
+    values[k - idle:] = 0.0
+    base = torch.as_tensor(rng.random(n).astype(np.float32) * 1e-6,
+                           device="cuda")
+    dup = np.full(100_000, 17)
+    dup[::7] = rng.integers(0, 1000, size=len(dup[::7]))
+    mixed = rng.standard_normal(dup.size) * 10.0 ** rng.integers(
+        -8, 8, size=dup.size)
+    cases = [("PageRank round", (base, index, values)),
+             ("one index 1e5 times", tuple(torch.as_tensor(x, device="cuda")
+                                          for x in (
+                 rng.random(1000).astype(np.float32), dup.astype(np.int32),
+                 mixed.astype(np.float32))))]
+    plain_report, errs = {}, []
+    for label, (b, i, v) in cases:
+        want = b.cpu().index_add_(0, i.cpu().long(), v.cpu())
+        got = ordered_scatter_add_cuda(b, i, v).cpu()
+        plain = ordered_scatter_add_ref(b, i, v).cpu()
+        err = float((got - want).abs().max())
+        errs.append(err)
+        plain_err = float((plain - want).abs().max())
+        plain_report[label] = {"bitwise": bool(torch.equal(plain, want)),
+                               "max_abs_err": plain_err}
+        log(f"  ordered_scatter_add {label}: {v.shape[0]} updates into "
+            f"{b.shape[0]} slots: bitwise {torch.equal(got, want)} "
+            f"(max_abs_err {err}); plain on CUDA (deterministic index_put_) "
+            f"bitwise {plain_report[label]['bitwise']}, max_abs_err "
+            f"{plain_err:.3g}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"ordered_scatter_add differs from the "
+                                 f"CPU's sequential sum: {label}")
+    return (base, index, values), max(errs), plain_report
+
+
+def algo_config(policy: str, workers: int = 1024, **kw):
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.runtime import config_for, parse_policy
+
+    return config_for(SchedulerConfig(num_workers=workers, fetch_size=4,
+                                      **kw), parse_policy(policy))
+
+
+def run_algo(algo: str, graph, cfg, params=None) -> tuple:
+    """One drain through the public entry points; host-clock seconds
+    ending in a device synchronize."""
+    from repro_torch.runtime import build_program, execute
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats, info = execute(build_program(algo, graph, cfg,
+                                               params=params), graph, cfg)
+    torch.cuda.synchronize()
+    return state, stats, info, time.perf_counter() - t0
+
+
+def drive(algo: str, graph, cfg, params=None, limit=None) -> tuple:
+    """``(carry, seconds)`` of one drain set up with ``drain_setup``, so
+    that the final queue comes back: the persistent driver, or the
+    megakernel cell's kernel (or plain fused drain) with host syncs set to
+    raise around a kernel launch."""
+    from repro_torch.core import (megakernel_drive, no_host_sync,
+                                  persistent_drive)
+    from repro_torch.runtime import build_program, policy_of
+    from repro_torch.runtime.api import drain_setup
+
+    setup = drain_setup(build_program(algo, graph, cfg, params=params),
+                        graph, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if policy_of(cfg).kernel != "megakernel":
+        carry = persistent_drive(setup.step, setup.cond, setup.carry)
+    elif setup.kernel is None:
+        carry = megakernel_drive(setup.step, setup.cond, setup.carry,
+                                 limit=limit)
+    else:
+        with no_host_sync(graph.device):
+            carry = megakernel_drive(setup.step, setup.cond, setup.carry,
+                                     limit=limit, kernel=setup.kernel)
+    torch.cuda.synchronize()
+    return carry, time.perf_counter() - t0
+
+
+def leaves(tree) -> list:
+    """Every tensor of a state or carry, on the host, in tree order."""
+    from repro_torch.core.tree import tree_map
+
+    out = []
+    tree_map(lambda t: out.append(t.cpu()), tree)
+    return out
+
+
+def same_leaves(a, b) -> bool:
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def scalars(carry) -> list:
+    """The carry's integer scalars: queue head, tail, dropped, rounds,
+    processed, then the state's 0-dim leaves."""
+    queue, state, rounds, processed = carry
+    return [int(x) for x in (queue.head, queue.tail, queue.dropped, rounds,
+                             processed)] + [int(x) for x in leaves(state)
+                                            if x.dim() == 0]
+
+
+def segmented(algo: str, graph, cfg, every: int, params=None) -> tuple:
+    """``(carry, segments)`` of the drain cut into launches of ``every``
+    rounds through ``megakernel_segment``."""
+    from repro_torch.core import megakernel_segment, no_host_sync
+    from repro_torch.runtime import build_program
+    from repro_torch.runtime.api import drain_setup
+
+    setup = drain_setup(build_program(algo, graph, cfg, params=params),
+                        graph, cfg)
+    seg = megakernel_segment(setup.step, setup.cond, setup.carry,
+                             kernel=setup.kernel)
+    carry, limit, segments = setup.carry, 0, 0
+    while bool(setup.cond(carry)):
+        limit += every
+        with no_host_sync(graph.device):
+            carry = seg(carry, limit)
+        segments += 1
+    torch.cuda.synchronize()
+    return carry, segments
+
+
+def pagerank_invariant(graph, state, units: int, work: int) -> dict:
+    """The push invariant ``rank + residue = (1-d) + d A^T D^-1 rank`` in
+    float64 on the card, with d and 1-d the float32 values the drain used.
+
+    The bound: every value that reaches x_v = rank_v + residue_v only grows
+    (mass moves from residue to rank or arrives from neighbors), so each of
+    the N_v float32 additions into residue_v, the H_v into rank_v, and the
+    multiply and divide of each arriving contribution err by at most
+    u * x_v (u = 2**-24), to first order.  Summed over the vertices,
+    sum_v |err_v| / x_v <= u * (sum N_v + sum H_v + 2 n) = u * (units +
+    work + 2 n): the units the drain expanded and the vertices it
+    harvested."""
+    n = graph.num_vertices
+    d = float(np.float32(PR_PARAMS["damping"]))
+    base = float(np.float32(1.0 - PR_PARAMS["damping"]))
+    src = torch.repeat_interleave(torch.arange(n, device="cuda"),
+                                  graph.degrees().long(),
+                                  output_size=graph.num_edges)
+    cols = graph.col_idx.long()
+    deg = graph.degrees().clamp(min=1).double()
+    rank = state.rank.double()
+    x = rank + state.residue.double()
+    rhs = torch.full((n,), base, dtype=torch.float64,
+                     device="cuda").index_add_(0, cols, (d * rank / deg)[src])
+    rel = (x - rhs).abs() / x
+    bound = U32 * (units + work + 2 * n)
+    ref = torch.full((n,), base, dtype=torch.float64, device="cuda")
+    for _ in range(300):
+        ref = torch.full_like(ref, base).index_add_(0, cols,
+                                                    (d * ref / deg)[src])
+    ref_err = float(((rank - ref).abs() / ref.clamp(min=1.0)).max())
+    return {"sum_rel_err": float(rel.sum()), "max_rel_err": float(rel.max()),
+            "bound": bound, "ref_max_rel_err": float(ref_err),
+            "ref_limit": 1e-3, "min_x": float(x.min())}
+
+
+def pagerank_bytes(units, work, processed, rounds, n_check, pushed) -> int:
+    """Bytes a PageRank drain must move: per unit its col_idx word and the
+    target's residue read and written (12); per harvest two row_ptr words,
+    rank and residue read and written, the presence bit (25); per pop its
+    ring word (4); per rescan id its residue and presence bit (5); per push
+    its ring word (4)."""
+    return (12 * units + 25 * work + 4 * processed + 5 * n_check * rounds
+            + 4 * pushed)
+
+
+def coloring_bytes(visits, processed, work, pushed) -> int:
+    """Bytes a coloring drain must move: per neighbor visited its col_idx
+    word and its color (8); per pop its ring word and two row_ptr words
+    (12); per assign its color write (4); per push its ring word (4)."""
+    return 8 * visits + 12 * processed + 4 * work + 4 * pushed
+
+
+def carry_err(a, b) -> float:
+    """Largest |a - b| over two carries' leaves, in float64 (inf where
+    their shapes or types differ)."""
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb) or any(x.shape != y.shape or x.dtype != y.dtype
+                                 for x, y in zip(la, lb)):
+        return float("inf")
+    return max((float((x.double() - y.double()).abs().max())
+                for x, y in zip(la, lb) if x.numel()), default=0.0)
+
+
+def first_rounds_times(algo: str, graph, kernel_name: str) -> dict:
+    """The kernel and the plain fused drain (backend torch) on the same
+    inputs, the first FIRST_ROUNDS rounds of the main drain: device time
+    by the profiler (CUDA events around the kernel beside it), and what
+    those rounds moved.  The kernel's carry is held bitwise against a
+    plain version at this shape: for coloring the plain drain on the
+    card; for PageRank, whose plain scatter-add on CUDA tensors sums in
+    another order (kernels/scatter_add/ref.py), the plain drain on the
+    CPU over the graph copied there, which sums in update order."""
+    wrapper = _wrappers()[kernel_name]
+    params = PR_PARAMS if algo == "pagerank" else None
+    cfg_k = algo_config("single.megakernel")
+    cfg_t = algo_config("single.megakernel", backend="torch")
+    carry, _ = drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS)
+    counted = (int(wrapper.units_expanded) if algo == "pagerank"
+               else int(wrapper.visits))
+    _, k_rows = device_profile(
+        lambda: drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS))
+    k_ms = sum(ms for key, ms, _ in k_rows if kernel_name in key)
+    ev_ms = cuda_ms(lambda: drive(algo, graph, cfg_k, params,
+                                  limit=FIRST_ROUNDS), reps=3, warmup=1)
+    held = {}
+    p_ms, _ = device_profile(lambda: held.update(out=drive(
+        algo, graph, cfg_t, params, limit=FIRST_ROUNDS)))
+    plain_carry, plain_secs = held["out"]
+    timed_by = "profiler device time"
+    if not k_ms or p_ms is None:
+        k_ms, p_ms, timed_by = ev_ms, 1e3 * plain_secs, "cuda events / wall"
+    if int(plain_carry[2]) != int(carry[2]):
+        raise AssertionError(f"{algo}: the plain fused drain ran "
+                             f"{int(plain_carry[2])} rounds, not "
+                             f"{int(carry[2])}")
+    out = {"carry": carry, "counted": counted, "ms": k_ms,
+           "event_ms": ev_ms, "plain_ms": p_ms,
+           "plain_wall_ms": 1e3 * plain_secs, "timed_by": timed_by}
+    if algo == "coloring":
+        plain = plain_carry
+        held_against = "the plain fused drain on the card"
+    else:
+        t0 = time.perf_counter()
+        plain = host_plain_drain(
+            algo, graph.to("cpu"),
+            algo_config("single.discrete", max_rounds=FIRST_ROUNDS), params)
+        out["cpu_plain_seconds"] = time.perf_counter() - t0
+        out["plain_on_cuda_max_abs_err"] = carry_err(carry, plain_carry)
+        held_against = "the plain drain on the CPU (graph copied there)"
+    bitwise, err = same_leaves(carry, plain), carry_err(carry, plain)
+    if not bitwise:
+        raise AssertionError(f"{algo}: over the first {FIRST_ROUNDS} rounds "
+                             f"the drain kernel differs from {held_against}:"
+                             f" max |diff| {err}")
+    return {**out, "held_against": held_against, "bit_equal": bitwise,
+            "max_abs_err": err}
+
+
+def pagerank_path(graph, card: str, small_scale: int) -> dict:
+    """Phase 4c: PageRank on ``graph`` through B1, B2 and the ordered
+    scatter-add (``single.persistent``) and through B3-pr
+    (``single.megakernel``), held against each other bitwise, against the
+    push invariant and against a float64 power iteration; 64-round
+    segments against the whole; the kernel drain at ``small_scale``
+    against the plain drain on the CPU."""
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
+
+    cfg_p = algo_config("single.persistent")
+    cfg_m = algo_config("single.megakernel")
+    walls = {"persistent": [], "megakernel": []}
+    reset_counts()
+    state, stats, info, secs = run_algo("pagerank", graph, cfg_p, PR_PARAMS)
+    counts = read_counts()
+    walls["persistent"].append(secs)
+    rounds = info["rounds"]
+    steps = -(-rounds // POLL_EVERY) * POLL_EVERY
+    max_res = float(state.residue.max())
+    log(f"    single.persistent: counts={counts} info={info} max_residue "
+        f"{max_res:.4g}; drain {secs:.3f} s, {1e3 * secs / rounds:.3f} "
+        f"ms/round  [{card}]")
+    if counts != only(lbs=steps, compact=2 * steps + 1,
+                      ordered_scatter_add=steps):
+        raise AssertionError(f"expected per predicated step ({steps}) one "
+                             f"LBS, one ordered scatter-add and two "
+                             f"compactions (the body's push and on_empty's), "
+                             f"plus the seed push's compaction, and no "
+                             f"other: {counts}")
+    if not (rounds < algo_config("single.persistent").max_rounds
+            and max_res <= PR_PARAMS["eps"] and info["dropped"] == 0):
+        raise AssertionError(f"PageRank did not converge: {info}, "
+                             f"max_residue {max_res}")
+
+    reset_counts()
+    state_m, stats_m, info_m, secs_m = run_algo("pagerank", graph, cfg_m,
+                                                PR_PARAMS)
+    counts_m = read_counts()
+    units = int(pagerank_drain_cuda.units_expanded)
+    walls["megakernel"].append(secs_m)
+    log(f"    single.megakernel: counts={counts_m} info={info_m} units "
+        f"expanded {units}; drain {secs_m:.3f} s  [{card}]")
+    if counts_m != only(pagerank_drain=1):
+        raise AssertionError(f"expected exactly one PageRank drain launch "
+                             f"and no other: {counts_m}")
+    if not same_leaves(state_m, state) \
+            or [int(x) for x in stats_m] != [int(x) for x in stats] \
+            or info_m != {**info, "launches": 1}:
+        raise AssertionError(f"the megakernel PageRank differs from the "
+                             f"persistent one: {info_m} vs {info}")
+    log("    rank, residue, presence bits, cursor, WorkCounter, RunStats and "
+        "info equal the persistent drain's, bit for bit")
+
+    # the final queue: both drains again, set up by hand, alternated
+    carry_m, secs = drive("pagerank", graph, cfg_m, PR_PARAMS)
+    walls["megakernel"].append(secs)
+    carry_p, secs = drive("pagerank", graph, cfg_p, PR_PARAMS)
+    walls["persistent"].append(secs)
+    if not same_leaves(carry_m, carry_p) or not same_leaves(carry_m[1],
+                                                            state):
+        raise AssertionError(f"megakernel carry differs from the persistent "
+                             f"one: {scalars(carry_m)} vs {scalars(carry_p)}")
+    log(f"    final queue and counters equal the persistent drain's: "
+        f"(head, tail, dropped, rounds, processed, cursor, work, splits, "
+        f"counter rounds) = {scalars(carry_m)}")
+
+    inv = pagerank_invariant(graph, state, units, int(state.counter.work))
+    log(f"    push invariant in float64: sum_v |err_v|/x_v = "
+        f"{inv['sum_rel_err']:.4g} <= u (units + work + 2n) = "
+        f"{inv['bound']:.4g} (max |err_v|/x_v {inv['max_rel_err']:.3g}); "
+        f"max_v |rank - ref| / max(ref, 1) = {inv['ref_max_rel_err']:.3g} "
+        f"against 300 float64 power iterations (limit 1e-3)")
+    if not (inv["sum_rel_err"] <= inv["bound"]
+            and inv["ref_max_rel_err"] <= inv["ref_limit"]):
+        raise AssertionError(f"PageRank outside its bounds: {inv}")
+
+    seg_carry, segments = segmented("pagerank", graph, cfg_m, 64, PR_PARAMS)
+    if not same_leaves(seg_carry, carry_m):
+        raise AssertionError("the PageRank drain cut into 64-round "
+                             "segments differs from the whole drain")
+    log(f"    {segments} segments of 64 rounds equal the whole drain")
+
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    cfg_small = algo_config("single.megakernel", workers=256)
+    small_k, _ = drive("pagerank", small, cfg_small, PR_PARAMS)
+    host = small.to("cpu")
+    cfg_host = algo_config("single.discrete", workers=256)
+    t0 = time.perf_counter()
+    small_h = host_plain_drain("pagerank", host, cfg_host, PR_PARAMS)
+    host_secs = time.perf_counter() - t0
+    if not same_leaves(small_k, small_h):
+        raise AssertionError(f"at rmat({small_scale}) the PageRank drain "
+                             f"kernel differs from the plain drain on the "
+                             f"CPU: {scalars(small_k)} vs {scalars(small_h)}")
+    log(f"    rmat({small_scale}) W={cfg_small.wavefront}: the drain kernel "
+        f"equals the plain fused drain run on the CPU bit for bit "
+        f"({host_secs:.1f} s there); {scalars(small_k)}")
+
+    # busy share: the megakernel drain, and the first 256 persistent rounds
+    held = {}
+    mega_dev_ms, mega_rows = device_profile(
+        lambda: held.update(secs=drive("pagerank", graph, cfg_m,
+                                       PR_PARAMS)[1]))
+    b3_ms = sum(ms for key, ms, _ in mega_rows if "pagerank_drain" in key)
+    cut_cfg = algo_config("single.persistent", max_rounds=256)
+    held_p = {}
+    pers_dev_ms, pers_rows = device_profile(
+        lambda: held_p.update(secs=run_algo("pagerank", graph, cut_cfg,
+                                            PR_PARAMS)[3]))
+    first = first_rounds_times("pagerank", graph, "pagerank_drain")
+    fc = first["carry"]
+    n_check = min(1024 * PR_PARAMS["check_size"], graph.num_vertices)
+    pushed = int(carry_m[0].tail) - int(graph.num_vertices)
+    drain_bytes = pagerank_bytes(units, int(state.counter.work),
+                                 int(stats.items_processed), rounds, n_check,
+                                 pushed)
+    first_bytes = pagerank_bytes(
+        first["counted"], int(fc[1].counter.work), int(fc[3]), int(fc[2]),
+        n_check, int(fc[0].tail) - int(graph.num_vertices))
+    out = {"info": info, "counts": counts, "counts_megakernel": counts_m,
+           "max_residue": max_res, "units_expanded": units,
+           "work_per_n": int(state.counter.work) / graph.num_vertices,
+           "walls": walls, "invariant": inv, "segments_of_64": segments,
+           "small": {"scale": small_scale, "carry": scalars(small_k),
+                     "cpu_seconds": host_secs},
+           "megakernel_profiled": {"seconds": held["secs"],
+                                   "device_ms": mega_dev_ms,
+                                   "b3_ms": b3_ms,
+                                   "rows": mega_rows[:10]},
+           "persistent_first_256": {"seconds": held_p["secs"],
+                                    "device_ms": pers_dev_ms,
+                                    "device_ops": sum(c for _, _, c in
+                                                      pers_rows),
+                                    "rows": pers_rows[:10]},
+           "drain_bound_ms": 1e3 * drain_bytes / HBM_BYTES_PER_S,
+           "first_rounds": {k: v for k, v in first.items() if k != "carry"},
+           "first_bound_ms": 1e3 * first_bytes / HBM_BYTES_PER_S,
+           "first_rounds_n": int(fc[2])}
+    mean_p = sum(walls["persistent"]) / len(walls["persistent"])
+    mean_m = sum(walls["megakernel"]) / len(walls["megakernel"])
+    log(f"    drains in turn (persistent, megakernel, megakernel, "
+        f"persistent): persistent {walls['persistent']} s, megakernel "
+        f"{walls['megakernel']} s; {rounds} rounds, work/n "
+        f"{out['work_per_n']:.3f}: {1e3 * mean_p / rounds:.3f} vs "
+        f"{1e3 * mean_m / rounds:.4f} ms/round  [{card}]")
+    log(f"    B3-pr pagerank_drain: {b3_ms:.3f} ms of device time for the "
+        f"drain ({1e3 * b3_ms / rounds:.2f} us/round), busy share "
+        f"{None if mega_dev_ms is None else mega_dev_ms / (1e3 * held['secs'])}"
+        f"; bound {out['drain_bound_ms']:.3f} ms (bytes)  [{card}]")
+    log(f"    persistent, first 256 rounds under the profiler: "
+        f"{held_p['secs']:.3f} s wall, {pers_dev_ms} ms device, busy share "
+        f"{None if pers_dev_ms is None else pers_dev_ms / (1e3 * held_p['secs'])}"
+        f"  [{card}]")
+    log(f"    first {out['first_rounds_n']} rounds: kernel {first['ms']} ms "
+        f"(events {first['event_ms']:.3f}), plain fused drain "
+        f"{first['plain_ms']} ms device ({first['plain_wall_ms']:.1f} ms "
+        f"wall), bound {out['first_bound_ms']:.4f} ms  [{card}]")
+    log(f"    first {out['first_rounds_n']} rounds: the kernel's carry "
+        f"equals {first['held_against']} bit for bit "
+        f"({first['cpu_plain_seconds']:.1f} s there; max |diff| "
+        f"{first['max_abs_err']}); the plain drain on the card (another "
+        f"summation order) differs by at most "
+        f"{first['plain_on_cuda_max_abs_err']:.3g}")
+    return out
+
+
+def host_plain_drain(algo: str, host_graph, cfg, params=None):
+    """The plain drain on CPU tensors: ``fused_drain_ref`` (kernel B3's
+    plain version) over the step of ``cfg``'s cell, whose expansion is the
+    flat gather through B1's plain version (equal to the streamed one)."""
+    from repro_torch.kernels.drain_loop.kernel import fused_drain_ref
+    from repro_torch.runtime import build_program
+    from repro_torch.runtime.api import drain_setup
+
+    setup = drain_setup(build_program(algo, host_graph, cfg, params=params),
+                        host_graph, cfg)
+    return fused_drain_ref(setup.step, setup.cond, setup.carry)
+
+
+def coloring_path(graph, card: str, small_scale: int) -> dict:
+    """Phase 4d: coloring on ``graph`` through B1 and B2
+    (``single.persistent``, backends auto and torch) and through B3-col
+    (``single.megakernel``), valid and held against each other bitwise;
+    64-round segments against the whole; the kernel drain at
+    ``small_scale`` against the plain fused drain."""
+    from repro_torch.algorithms.coloring import validate_coloring
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.coloring_drain import (
+        coloring_drain_cuda)
+
+    cfg_p = algo_config("single.persistent")
+    cfg_m = algo_config("single.megakernel")
+    walls = {"persistent": [], "megakernel": []}
+    reset_counts()
+    state, stats, info, secs = run_algo("coloring", graph, cfg_p)
+    counts = read_counts()
+    walls["persistent"].append(secs)
+    rounds = info["rounds"]
+    steps = -(-rounds // POLL_EVERY) * POLL_EVERY
+    n_colors = int(state.colors.max()) + 1
+    log(f"    single.persistent: counts={counts} info={info} colors "
+        f"{n_colors}; drain {secs:.3f} s, {1e3 * secs / rounds:.3f} ms/round"
+        f"  [{card}]")
+    if counts != only(lbs=3 * steps, compact=steps + 1):
+        raise AssertionError(f"expected three LBS launches (the two gathers "
+                             f"and the free-color search) and one "
+                             f"compaction per predicated step ({steps}), "
+                             f"plus the seed push's compaction: {counts}")
+    if info["dropped"] != 0 or not validate_coloring(graph, state.colors):
+        raise AssertionError(f"the coloring is not valid: {info}")
+    log("    valid (checked on the card: every vertex colored, no edge "
+        "joins one color)")
+    reset_counts()
+    state_t, stats_t, info_t, secs_t = run_algo(
+        "coloring", graph, algo_config("single.persistent", backend="torch"))
+    if any(read_counts().values()) or not same_leaves(state_t, state) \
+            or info_t != info \
+            or [int(x) for x in stats_t] != [int(x) for x in stats]:
+        raise AssertionError("backend='torch' coloring differs or launched "
+                             "a kernel")
+    log(f"    backend=torch: identical colors, counters and RunStats; "
+        f"drain {secs_t:.3f} s  [{card}]")
+
+    reset_counts()
+    state_m, stats_m, info_m, secs_m = run_algo("coloring", graph, cfg_m)
+    counts_m = read_counts()
+    visits = int(coloring_drain_cuda.visits)
+    walls["megakernel"].append(secs_m)
+    if counts_m != only(coloring_drain=1):
+        raise AssertionError(f"expected exactly one coloring drain launch "
+                             f"and no other: {counts_m}")
+    if not same_leaves(state_m, state) \
+            or [int(x) for x in stats_m] != [int(x) for x in stats] \
+            or info_m != {**info, "launches": 1}:
+        raise AssertionError(f"the megakernel coloring differs from the "
+                             f"persistent one: {info_m} vs {info}")
+    log(f"    single.megakernel: counts={counts_m}, {visits} neighbor "
+        f"visits; colors, WorkCounter, RunStats and info equal the "
+        f"persistent drain's; drain {secs_m:.4f} s  [{card}]")
+    carry_m, secs = drive("coloring", graph, cfg_m)
+    walls["megakernel"].append(secs)
+    carry_p, secs = drive("coloring", graph, cfg_p)
+    walls["persistent"].append(secs)
+    if not same_leaves(carry_m, carry_p):
+        raise AssertionError(f"megakernel carry differs from the persistent "
+                             f"one: {scalars(carry_m)} vs {scalars(carry_p)}")
+    log(f"    final queue and counters equal the persistent drain's: "
+        f"(head, tail, dropped, rounds, processed, work, splits, counter "
+        f"rounds) = {scalars(carry_m)}")
+    seg_carry, segments = segmented("coloring", graph, cfg_m, 64)
+    if not same_leaves(seg_carry, carry_m):
+        raise AssertionError("the coloring drain cut into 64-round "
+                             "segments differs from the whole drain")
+    log(f"    {segments} segments of 64 rounds equal the whole drain")
+
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    small_k, _ = drive("coloring", small,
+                       algo_config("single.megakernel", workers=256))
+    reset_counts()
+    small_t, _ = drive("coloring", small,
+                       algo_config("single.megakernel", workers=256,
+                                   backend="torch"))
+    if any(read_counts().values()) or not same_leaves(small_k, small_t):
+        raise AssertionError(f"at rmat({small_scale}) the coloring drain "
+                             f"kernel differs from the plain fused drain")
+    log(f"    rmat({small_scale}) W=1024: the drain kernel equals the plain "
+        f"fused drain (backend=torch) bit for bit; {scalars(small_k)}")
+
+    held = {}
+    mega_dev_ms, mega_rows = device_profile(
+        lambda: held.update(secs=drive("coloring", graph, cfg_m)[1]))
+    b3_ms = sum(ms for key, ms, _ in mega_rows if "coloring_drain" in key)
+    cut_cfg = algo_config("single.persistent", max_rounds=256)
+    held_p = {}
+    pers_dev_ms, pers_rows = device_profile(
+        lambda: held_p.update(secs=run_algo("coloring", graph,
+                                            cut_cfg)[3]))
+    first = first_rounds_times("coloring", graph, "coloring_drain")
+    fc = first["carry"]
+    n = graph.num_vertices
+    drain_bytes = coloring_bytes(visits, int(stats.items_processed),
+                                 int(state.counter.work),
+                                 int(carry_m[0].tail) - n)
+    first_bytes = coloring_bytes(first["counted"], int(fc[3]),
+                                 int(fc[1].counter.work),
+                                 int(fc[0].tail) - n)
+    out = {"info": info, "counts": counts, "counts_megakernel": counts_m,
+           "colors": n_colors, "visits": visits,
+           "work_per_n": int(state.counter.work) / n, "walls": walls,
+           "torch_seconds": secs_t, "segments_of_64": segments,
+           "small": {"scale": small_scale, "carry": scalars(small_k)},
+           "megakernel_profiled": {"seconds": held["secs"],
+                                   "device_ms": mega_dev_ms, "b3_ms": b3_ms,
+                                   "rows": mega_rows[:10]},
+           "persistent_first_256": {"seconds": held_p["secs"],
+                                    "device_ms": pers_dev_ms,
+                                    "device_ops": sum(c for _, _, c in
+                                                      pers_rows),
+                                    "rows": pers_rows[:10]},
+           "drain_bound_ms": 1e3 * drain_bytes / HBM_BYTES_PER_S,
+           "first_rounds": {k: v for k, v in first.items() if k != "carry"},
+           "first_bound_ms": 1e3 * first_bytes / HBM_BYTES_PER_S,
+           "first_rounds_n": int(fc[2])}
+    mean_p = sum(walls["persistent"]) / len(walls["persistent"])
+    mean_m = sum(walls["megakernel"]) / len(walls["megakernel"])
+    log(f"    drains in turn (persistent, megakernel, megakernel, "
+        f"persistent): persistent {walls['persistent']} s, megakernel "
+        f"{walls['megakernel']} s; {rounds} rounds, work/n "
+        f"{out['work_per_n']:.3f}, {n_colors} colors: "
+        f"{1e3 * mean_p / rounds:.3f} vs {1e3 * mean_m / rounds:.4f} "
+        f"ms/round  [{card}]")
+    log(f"    B3-col coloring_drain: {b3_ms:.3f} ms of device time for the "
+        f"drain ({1e3 * b3_ms / rounds:.2f} us/round), busy share "
+        f"{None if mega_dev_ms is None else mega_dev_ms / (1e3 * held['secs'])}"
+        f"; bound {out['drain_bound_ms']:.3f} ms (bytes)  [{card}]")
+    log(f"    persistent, first 256 rounds under the profiler: "
+        f"{held_p['secs']:.3f} s wall, {pers_dev_ms} ms device, busy share "
+        f"{None if pers_dev_ms is None else pers_dev_ms / (1e3 * held_p['secs'])}"
+        f"  [{card}]")
+    log(f"    first {out['first_rounds_n']} rounds: kernel {first['ms']} ms "
+        f"(events {first['event_ms']:.3f}), plain fused drain "
+        f"{first['plain_ms']} ms device ({first['plain_wall_ms']:.1f} ms "
+        f"wall), bound {out['first_bound_ms']:.4f} ms  [{card}]")
+    log(f"    first {out['first_rounds_n']} rounds: the kernel's carry "
+        f"equals {first['held_against']} bit for bit (max |diff| "
+        f"{first['max_abs_err']})")
+    return out
 
 
 # ------------------------------------------------------ B5, phases 3 and 6
@@ -902,6 +1482,9 @@ def main() -> int:
     from repro_torch.kernels.queue_compact.ref import compact_ref
     from repro_torch.kernels.drain_loop.csr_stream import (
         stream_row_slices_cuda, stream_row_slices_ref)
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+    from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
     from repro_torch.runtime import config_for, parse_policy
 
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
@@ -938,6 +1521,8 @@ def main() -> int:
     n_push = budget + cfg.wavefront
     (items, mask), compact_err = check_compact(n_push, dev, rng)
     main_starts, stream_err = check_stream(graph, dev, rng)
+    scatter_main, scatter_err, scatter_plain = check_scatter(graph, budget,
+                                                            rng)
     torch.backends.cuda.matmul.allow_tf32 = False
     flash_err = check_flash()
 
@@ -949,8 +1534,7 @@ def main() -> int:
     counts = read_counts()
     steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
     log(f"    counts={counts} info={info} drain {secs:.3f} s")
-    if counts != {"lbs": steps, "compact": steps + 1, "csr_stream": 0,
-                  "bfs_drain": 0, "flash_attention": 0}:
+    if counts != only(lbs=steps, compact=steps + 1):
         raise AssertionError(f"expected one LBS and one compaction launch "
                              f"per predicated step ({steps}) plus the seed "
                              f"push's compaction, and no other, got {counts}")
@@ -1002,6 +1586,14 @@ def main() -> int:
     mega = check_megakernel(graph, grid, source, (state, stats, info), want,
                             want_grid, min(args.scale, 14))
 
+    log(f"[4c] PageRank rmat({args.scale}) damping 0.85 eps 1e-6 check_size "
+        f"64, W=4096 g1: single.persistent (B1, B2, the ordered "
+        f"scatter-add) and single.megakernel (B3-pr)")
+    pr = pagerank_path(graph, card, min(args.scale, 14))
+    log(f"[4d] coloring rmat({args.scale}) W=4096 g1: single.persistent (B1, "
+        f"B2) and single.megakernel (B3-col)")
+    col = coloring_path(graph, card, min(args.scale, 14))
+
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
     zeros = torch.zeros(n_push, dtype=torch.int32, device=dev)
@@ -1029,6 +1621,11 @@ def main() -> int:
             lambda: stream_row_slices_cuda(graph.col_idx, main_starts, 4096),
             lambda: stream_row_slices_ref(graph.col_idx, main_starts, 4096),
             lambda: padded_main[main_starts[:, None].long() + window]),
+        "ordered_scatter_add": (
+            lambda: ordered_scatter_add_cuda(*scatter_main),
+            lambda: ordered_scatter_add_ref(*scatter_main),
+            lambda: scatter_main[0].clone().index_add_(
+                0, scatter_main[1], scatter_main[2])),
     }
     times = {}
     for name, fns in versions.items():
@@ -1041,7 +1638,9 @@ def main() -> int:
     # least time: each input read once, each output written once
     bound_bytes = {"lbs": 4 * main_scan.shape[0] + 8 * budget,
                    "compact": 5 * n_push + 4 * n_push + 4,
-                   "csr_stream": 4 * 4096 + 2 * 4 * 4096 * 4096}
+                   "csr_stream": 4 * 4096 + 2 * 4 * 4096 * 4096,
+                   "ordered_scatter_add": 8 * scatter_main[1].shape[0]
+                   + 8 * graph.num_vertices}
 
     # the main drain again on each backend, warm, in the order auto,
     # torch, torch, auto so that neither is always first; then one drain of
@@ -1099,7 +1698,8 @@ def main() -> int:
     mega_dev_ms, mega_rows = device_profile(
         lambda: held.update(secs=drain(graph, cfg_mega, source)[3]))
     b3_ms = sum(ms for key, ms, _ in mega_rows if "bfs_drain" in key)
-    b3_event_ms = cuda_ms(lambda: kernel_drain(graph, cfg_mega, source),
+    b3_event_ms = cuda_ms(lambda: drive("bfs", graph, cfg_mega,
+                                        {"source": source}),
                           reps=3, warmup=1)
     b3_timed_by = "profiler device time"
     if b3_ms <= 0:
@@ -1116,7 +1716,7 @@ def main() -> int:
                              f"from the drain kernel: {info_t} vs "
                              f"{mega['info']}")
     plain_ms = plain_dev_ms if plain_dev_ms is not None else 1e3 * secs_t
-    pushed = carry_parts(mega["carry"])[1][1]
+    pushed = scalars(mega["carry"])[1]
     processed_m = int(mega["stats"].items_processed)
     bound_bytes["bfs_drain"] = (8 * mega["units"] + 12 * processed_m
                                 + 4 * pushed)
@@ -1217,7 +1817,53 @@ def main() -> int:
         "library_event_ms": flash["library_event_ms"],
         "shape": "q bf16[48, 4096, 128], k/v bf16[16, 4096, 128], causal "
                  "(minitron-4b layer, B=2 x T=4096)"})
-    for kern in kernels[:3]:
+    scatter_k = scatter_main[1].shape[0]
+    (kd, pd, ld), timed_by, (ke, pe, le) = times["ordered_scatter_add"]
+    kernels.append({
+        "name": "ordered_scatter_add", "route": "cuda",
+        "source": "src/repro_torch/csrc/ordered_scatter_add.cu",
+        "replaces": "none: the deterministic form of residue.at[nbr].add "
+                    "(src/repro/algorithms/pagerank.py:122)",
+        "launches": pr["counts"]["ordered_scatter_add"],
+        "bit_equal": scatter_err == 0, "max_abs_err": scatter_err,
+        "tolerance": "bitwise against the CPU's sequential sum "
+                     "(index_add_ on CPU tensors)",
+        "ms": kd, "plain_ms": pd,
+        "bound_ms": 1e3 * bound_bytes["ordered_scatter_add"]
+        / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": ld,
+        "library": "index_add_ (atomics, not bitwise)", "timed_by": timed_by,
+        "event_ms": ke, "plain_event_ms": pe, "library_event_ms": le,
+        "plain_on_cuda": scatter_plain,
+        "shape": f"f32[{graph.num_vertices}] += f32[{scatter_k}] at "
+                 f"int32[{scatter_k}] (a PageRank round's units)"})
+    for name, path, source_file in (
+            ("pagerank_drain", pr, "src/repro_torch/csrc/pagerank_drain.cu"),
+            ("coloring_drain", col,
+             "src/repro_torch/csrc/coloring_drain.cu")):
+        first = path["first_rounds"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source_file,
+            "replaces": "src/repro/kernels/drain_loop/kernel.py:82",
+            "launches": path["counts_megakernel"][name],
+            "bit_equal": first["bit_equal"],
+            "max_abs_err": first["max_abs_err"],
+            "tolerance": f"bitwise against {first['held_against']} over "
+                         f"these rounds, and against the persistent drain "
+                         f"over the whole drain",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": path["first_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "timed_by": first["timed_by"],
+            "event_ms": first["event_ms"],
+            "plain_wall_ms": first["plain_wall_ms"],
+            **{k: first[k] for k in ("plain_on_cuda_max_abs_err",
+                                     "cpu_plain_seconds") if k in first},
+            "timed_over": f"the first {path['first_rounds_n']} rounds of the "
+                          f"rmat({args.scale}) drain",
+            "drain_ms": path["megakernel_profiled"]["b3_ms"],
+            "drain_bound_ms": path["drain_bound_ms"],
+            "rounds": path["info"]["rounds"],
+            "shape": f"rmat({args.scale}) drain, W={cfg.wavefront}, g1"})
+    for kern in kernels[:3] + kernels[-3:-2]:
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
             f"{kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
             f"bound {kern['bound_ms']:.4f}; between events {kern['event_ms']:.4f}, "
@@ -1248,6 +1894,8 @@ def main() -> int:
                        "small": mega["small"]},
         "flash_attention": flash,
         "lm": lm,
+        "pagerank": pr,
+        "coloring": col,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

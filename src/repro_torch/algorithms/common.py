@@ -1,4 +1,5 @@
-"""Budget helpers shared by the queue-driven algorithm drivers.
+"""Helpers shared by the queue-driven algorithm drivers: budgets, chunking
+and a dense scatter-set.
 
 The counterpart of ``repro/algorithms/common.py`` (single-shard branch; the
 shard-ownership block comes with the sharded slice).
@@ -8,6 +9,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.task import ChunkCodec
 from ..graph.csr import CSRGraph
@@ -59,3 +61,31 @@ def chunking_for(cfg, work_budget: int | None = None
             "sharded chunking comes with the sharded slice, ROADMAP A12")
     bounds = [b for b in (cfg.split_threshold, work_budget) if b]
     return ChunkCodec(cfg.granularity), (min(bounds) if bounds else None)
+
+
+def scatter_set(base: torch.Tensor, index: torch.Tensor, mask: torch.Tensor,
+                values) -> torch.Tensor:
+    """``base.at[where(mask, index, n)].set(where(mask, values, 0),
+    mode="drop")`` as a new tensor, for masked targets that are unique or
+    that get one value.  Unmasked lanes write a spare slot each
+    (``n + lane``), so that on the card they do not all store to one
+    address."""
+    n, k = base.shape[0], index.shape[0]
+    lane = torch.arange(k, dtype=torch.int32, device=base.device)
+    ext = torch.cat([base, base.new_zeros(k)])
+    ext[torch.where(mask, index, n + lane).long()] = torch.where(
+        mask, values, 0).to(base.dtype)
+    return ext[:n]
+
+
+def mark(n: int, index: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``zeros(n, bool).at[where(mask, index, n)].set(True, mode="drop")``."""
+    return scatter_set(torch.zeros(n, dtype=torch.bool, device=index.device),
+                       index, mask, mask)
+
+
+def edge_sources(graph: CSRGraph, dtype=torch.int64) -> torch.Tensor:
+    """[m] source vertex of every CSR edge."""
+    return torch.repeat_interleave(
+        torch.arange(graph.num_vertices, dtype=dtype, device=graph.device),
+        graph.degrees().long(), output_size=graph.num_edges)

@@ -1,6 +1,6 @@
 """Carry state across from the reference package as numpy arrays.
 
-The reference keeps its graphs, queues and BFS states as pytrees of
+The reference keeps its graphs, queues and algorithm states as pytrees of
 arrays; ``np.asarray`` of each leaf hands them to these constructors, and
 :func:`to_numpy` hands the port's objects back.  The tests use this to
 give both packages the same graph, the same mid-drain queue and state, and
@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from .algorithms.bfs import BFSState
+from .algorithms.coloring import ColorState
+from .algorithms.pagerank import PRState
 from .core.backend import resolve_device
 from .core.counters import WorkCounter
 from .core.queue import TaskQueue
@@ -19,6 +21,7 @@ from .core.tree import to_numpy
 from .graph.csr import CSRGraph
 
 __all__ = ["graph_from_numpy", "queue_from_numpy", "bfs_state_from_numpy",
+           "pagerank_state_from_numpy", "coloring_state_from_numpy",
            "params_from_numpy", "to_numpy"]
 
 
@@ -46,6 +49,34 @@ def bfs_state_from_numpy(dist, work, splits, rounds,
                     counter=WorkCounter(work=_int32(work, device),
                                         splits=_int32(splits, device),
                                         rounds=_int32(rounds, device)))
+
+
+def _counter(work, splits, rounds, device) -> WorkCounter:
+    return WorkCounter(work=_int32(work, device),
+                       splits=_int32(splits, device),
+                       rounds=_int32(rounds, device))
+
+
+def pagerank_state_from_numpy(rank, residue, in_queue, check_cursor, work,
+                              splits, rounds, device="cuda") -> PRState:
+    """A PageRank state (``PRState``) from the reference's leaves."""
+    device = resolve_device(device)
+    return PRState(
+        rank=torch.tensor(np.asarray(rank, dtype=np.float32), device=device),
+        residue=torch.tensor(np.asarray(residue, dtype=np.float32),
+                             device=device),
+        in_queue=torch.tensor(np.asarray(in_queue, dtype=bool),
+                              device=device),
+        check_cursor=_int32(check_cursor, device),
+        counter=_counter(work, splits, rounds, device))
+
+
+def coloring_state_from_numpy(colors, work, splits, rounds,
+                              device="cuda") -> ColorState:
+    """A coloring state (``ColorState``) from the reference's leaves."""
+    device = resolve_device(device)
+    return ColorState(colors=_int32(colors, device),
+                      counter=_counter(work, splits, rounds, device))
 
 
 def _tensor(x, device) -> torch.Tensor:

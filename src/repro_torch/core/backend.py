@@ -6,7 +6,8 @@ threaded through every layer that owns a hot loop:
     SchedulerConfig.backend
       -> core/frontier.expand_merge_path   (kernels/frontier_expand LBS)
       -> core/queue.TaskQueue.push         (kernels/queue_compact compaction)
-      -> algorithms/bfs wavefront body
+      -> kernels/scatter_add.ordered_scatter_add (PageRank's ordered sum)
+      -> algorithms/{bfs,pagerank,coloring} wavefront bodies
 
 Values:
 
@@ -40,6 +41,12 @@ STREAM = "stream"
 STREAM_TORCH = "stream-torch"
 #: each internal value -> the backend its row-slice stream runs on
 STREAMS = {STREAM: "auto", STREAM_TORCH: "torch"}
+
+
+def unstreamed(backend: str) -> str:
+    """The backend an internal stream value runs on (any other value
+    unchanged): for work that a megakernel body does off the stream."""
+    return STREAMS.get(backend, backend)
 
 
 def has_cuda() -> bool:

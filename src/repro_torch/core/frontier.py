@@ -97,6 +97,12 @@ def chunk_row_of(row_ptr: torch.Tensor, head: torch.Tensor, rank: torch.Tensor,
     return torch.clamp(head + local, 0, max(n - 1, 0))
 
 
+def search_for(backend: str, tensor: torch.Tensor):
+    """The load-balancing search for operands beside ``tensor``: the LBS
+    kernel when ``backend`` resolves to ``"cuda"``, else ``lbs_ref``."""
+    return lbs_cuda if resolve_backend(backend, tensor) == "cuda" else lbs_ref
+
+
 def inclusive_scan(deg: torch.Tensor):
     """``(scan, total)`` of the chunk degrees, in int32 as JAX keeps them."""
     scan = torch.cumsum(deg, 0, dtype=_I32)
@@ -159,10 +165,8 @@ def expand_merge_path(items: torch.Tensor, valid: torch.Tensor,
                              widths=widths, max_width=max_width,
                              overlay=overlay, backend=STREAMS[backend])
     _no_overlay(overlay)
-    cuda = resolve_backend(backend, row_ptr) == "cuda"
-    search = lbs_cuda if cuda else lbs_ref
-    return lbs_expansion(search, items, valid, row_ptr, col_idx, work_budget,
-                         widths, max_width)
+    return lbs_expansion(search_for(backend, row_ptr), items, valid, row_ptr,
+                         col_idx, work_budget, widths, max_width)
 
 
 def expand_per_item(items: torch.Tensor, valid: torch.Tensor,

@@ -46,12 +46,11 @@
 // range, in tiles of one unit per thread.  Four grid barriers a round: after
 // the reads of step 5 (before any atomicMin), after the atomicMins (before
 // the dedup reads them), after the per-block push counts, and after the ring
-// write (before the next pop).  The barrier is a counter and a generation
-// word in device memory, with no -rdc build; a barrier that has not
-// completed after about half a minute traps, so a fault ends the launch with
-// an error instead of holding the card.  Values that other blocks write
-// inside the launch (dist, the ring, the dedup words, the push counts) are
-// read with ld.global.cg, past the SM's incoherent L1.
+// write (before the next pop).  The barrier, the scans, the search and the
+// ring push are drain_common.cuh's, shared with the PageRank and coloring
+// drain kernels.  Values that other blocks write inside the launch (dist,
+// the ring, the dedup words, the push counts) are read with ld.global.cg,
+// past the SM's incoherent L1.
 //
 // What bounds the drain on an H100: bytes, about 8 bytes per expanded edge
 // (its col_idx word and dist[nbr]) plus the ring traffic, and the grid
@@ -61,31 +60,14 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
-
 #include "csr_stream.cuh"
+#include "drain_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kEmpty = INT_MIN;  // core/queue.EMPTY
-constexpr unsigned kSpinLimit = 1u << 28;
+using namespace drain;
 
-// The carry's scalars, in the order the Python wrapper packs them.
-enum Cursor {
-  kHead = 0,
-  kTail,
-  kDropped,
-  kRounds,
-  kProcessed,
-  kWork,
-  kSplits,
-  kCounterRounds,
-  kLimit,
-  kCursors
-};
+constexpr int kThreads = 512;
 
 struct Drain {
   int* buf;  // [cap] the task ring, updated in place
@@ -109,96 +91,6 @@ struct Drain {
   long long* units;  // out: work units expanded through the stream
 };
 
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
-// Python's modulo, as torch's `%` takes it on int32.
-__device__ __forceinline__ int ring_slot(int cursor, int cap) {
-  const int r = cursor % cap;
-  return r < 0 ? r + cap : r;
-}
-
-__device__ __forceinline__ int clamp_to(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-__device__ void grid_barrier(unsigned int* bar) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int seen = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      unsigned spins = 0;
-      while (*gen == seen) {
-        __nanosleep(100);
-        if (++spins > kSpinLimit) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Exclusive scan of one int a thread over the block, with int32 wraparound;
-// `total` gets the block's sum.  Every thread of the block must call it.
-__device__ int block_exclusive_scan(int v, int* warp_sums, int& total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned x = static_cast<unsigned>(v);
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned y = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = static_cast<int>(x);
-  __syncthreads();
-  if (warp == 0) {
-    unsigned s = lane < kWarps ? static_cast<unsigned>(warp_sums[lane]) : 0u;
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, s, off);
-      if (lane >= off) s += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = static_cast<int>(s);
-  }
-  __syncthreads();
-  const unsigned before =
-      (warp > 0 ? static_cast<unsigned>(warp_sums[warp - 1]) : 0u) + x -
-      static_cast<unsigned>(v);
-  total = warp_sums[kWarps - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  return static_cast<int>(before);
-}
-
-__device__ __forceinline__ int block_sum(int v, int* warp_sums) {
-  int total;
-  block_exclusive_scan(v, warp_sums, total);
-  return total;
-}
-
-// First j with s[j] > u, or w (kernel B1's search).
-__device__ __forceinline__ int upper_bound(const int* s, int w, int u) {
-  int base = 0;
-  int len = w;
-  while (len > 0) {
-    const int half = len >> 1;
-    const int mid = base + half;
-    const bool right = s[mid] <= u;
-    base = right ? mid + 1 : base;
-    len = right ? len - half - 1 : half;
-  }
-  return base;
-}
-
 struct Unit {
   int owner;
   int src;
@@ -207,7 +99,7 @@ struct Unit {
 __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
   extern __shared__ int dyn[];
   __shared__ int ring[csr_stream::kStages][kThreads];
-  __shared__ int warp_sums[kWarps];
+  __shared__ int warp_sums[kThreads / 32];
   const int W = d.wavefront;
   const int tid = threadIdx.x;
   const int G = gridDim.x;
@@ -237,7 +129,6 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
     const int k = size < W ? size : W;
 
     // 1-3. pop, degrees, inclusive scan, truncation: this block's own copy
-    unsigned run = 0;
     for (int l = l0; l < l1; ++l) {
       int item = kEmpty;
       int deg = 0;
@@ -249,30 +140,21 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
       }
       items[l] = item;
       scan[l] = deg;
-      run += static_cast<unsigned>(deg);
     }
-    int unused;
-    unsigned acc = static_cast<unsigned>(
-        block_exclusive_scan(static_cast<int>(run), warp_sums, unused));
+    inclusive_scan_lanes<kThreads>(scan, l0, l1, warp_sums);
     int trunc_local = 0;
     for (int l = l0; l < l1; ++l) {
-      acc += static_cast<unsigned>(scan[l]);
-      scan[l] = static_cast<int>(acc);
-      if (l < k && static_cast<int>(acc) > d.budget) ++trunc_local;
+      if (l < k && scan[l] > d.budget) ++trunc_local;
     }
-    const int n_trunc = block_sum(trunc_local, warp_sums);  // syncs scan[]
+    const int n_trunc = block_sum<kThreads>(trunc_local, warp_sums);
     const int total = scan[W - 1];
     const int L = total < 0 ? 0 : (total < d.budget ? total : d.budget);
     units += L;
 
     // this block's range of push positions: units [0, L), then items
     const int P = L + k;
-    const long long per_block = (static_cast<long long>(P) + G - 1) / G;
-    const int lo = static_cast<int>(
-        min(static_cast<long long>(blockIdx.x) * per_block,
-            static_cast<long long>(P)));
-    const int hi = static_cast<int>(
-        min(static_cast<long long>(lo) + per_block, static_cast<long long>(P)));
+    int lo, hi;
+    block_range(P, blockIdx.x, G, lo, hi);
     const int a_hi = min(hi, L);
     const int tiles_a = a_hi > lo ? (a_hi - lo + kThreads - 1) / kThreads : 0;
 
@@ -343,45 +225,23 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
     for (int p = max(lo, L) + tid; p < hi; p += kThreads) {
       if (scan[p - L] > d.budget) ++kept_local;
     }
-    const int kept = block_sum(kept_local, warp_sums);
+    const int kept = block_sum<kThreads>(kept_local, warp_sums);
     if (tid == 0) d.block_count[blockIdx.x] = kept;
     grid_barrier(d.barrier);
 
-    // 7. this block's offset and the round's push count, then the ring write
-    int base = 0;
-    int count = 0;
-    for (int c0 = 0; c0 < G; c0 += kThreads) {
-      const int b = c0 + tid;
-      const int v = b < G ? __ldcg(d.block_count + b) : 0;
-      base = wrap_add(base, block_sum(b < static_cast<int>(blockIdx.x) ? v : 0,
-                                      warp_sums));
-      count = wrap_add(count, block_sum(v, warp_sums));
-    }
+    // 7. the ring write at tail + rank
     const int head_after = wrap_add(head, k);
     const int free_slots = d.cap - wrap_sub(tail, head_after);
-    const int tiles_p = hi > lo ? (hi - lo + kThreads - 1) / kThreads : 0;
-    int offset = base;
-    for (int s = 0; s < tiles_p; ++s) {
-      const int p = lo + s * kThreads + tid;
-      int keep = 0;
-      int value = 0;
-      if (p < hi) {
-        if (p < L) {
-          value = d.unit_nbr[p];
-          keep = value >= 0;
-        } else {
-          keep = scan[p - L] > d.budget;
+    const int count = ring_push<kThreads>(
+        d.buf, d.cap, tail, free_slots, d.block_count, lo, hi, warp_sums,
+        [&](int p, int& value) {
+          if (p < L) {
+            value = d.unit_nbr[p];
+            return value >= 0;
+          }
           value = items[p - L];
-        }
-      }
-      int tile_total;
-      const int r =
-          wrap_add(offset, block_exclusive_scan(keep, warp_sums, tile_total));
-      if (keep && r < free_slots) {
-        d.buf[ring_slot(wrap_add(tail, r), d.cap)] = value;
-      }
-      offset = wrap_add(offset, tile_total);
-    }
+          return scan[p - L] > d.budget;
+        });
     grid_barrier(d.barrier);
 
     // 8. cursors and counters, the same in every block
@@ -408,35 +268,12 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
   }
 }
 
-struct DeviceInfo {
-  int sms = 0;
-  int smem_optin = 0;
-  int cooperative = 0;
-  int smem_set = 48 * 1024;  // dynamic shared memory bfs_drain may use
-};
-constexpr int kMaxDevices = 64;
-DeviceInfo g_info[kMaxDevices];
-
 // The launch plan for a wavefront of W: dynamic shared memory (0 when the
 // wavefront goes to global scratch) and the co-resident grid.
 cudaError_t plan(int W, size_t* dyn, int* grid) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  DeviceInfo info;
+  cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  DeviceInfo& info = g_info[dev];
-  if (info.sms == 0) {
-    err = cudaDeviceGetAttribute(&info.smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&info.cooperative,
-                                 cudaDevAttrCooperativeLaunch, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return err;
-  }
-  if (!info.cooperative) return cudaErrorNotSupported;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, bfs_drain);
   if (err != cudaSuccess) return err;
@@ -444,20 +281,8 @@ cudaError_t plan(int W, size_t* dyn, int* grid) {
   *dyn = wave + attr.sharedSizeBytes <= static_cast<size_t>(info.smem_optin)
              ? wave
              : 0;
-  if (*dyn > static_cast<size_t>(info.smem_set)) {
-    err = cudaFuncSetAttribute(bfs_drain,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(*dyn));
-    if (err != cudaSuccess) return err;
-    info.smem_set = static_cast<int>(*dyn);
-  }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bfs_drain,
-                                                      kThreads, *dyn);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *grid = per_sm * info.sms;
-  return cudaSuccess;
+  return cooperative_grid(reinterpret_cast<const void*>(bfs_drain), kThreads,
+                          *dyn, grid);
 }
 
 }  // namespace

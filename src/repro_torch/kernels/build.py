@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lbs", "compact", "csr_stream", "bfs_drain", "flash_attention")
+SOURCES = ("lbs", "compact", "csr_stream", "bfs_drain", "flash_attention",
+           "ordered_scatter_add", "pagerank_drain", "coloring_drain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

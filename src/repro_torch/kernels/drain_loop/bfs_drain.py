@@ -11,19 +11,14 @@ the source for its structure and what bounds it.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
 
-from ...core.counters import WorkCounter
 from ..build import check_launch, load
+from .launch import check_operand, launch_plan, pack_cursors, unpack_carry
 
 _I32 = torch.int32
-
-#: the carry's scalars in the order the kernel reads them (csrc enum Cursor)
-_CURSORS = ("head", "tail", "dropped", "rounds", "processed", "work",
-            "splits", "counter_rounds", "limit")
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,20 +37,8 @@ def _lib():
 def _grid(device_index: int, wavefront: int):
     """``(blocks, wavefront in shared memory)`` of the launch, read once per
     device and wavefront."""
-    grid, shared = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = _lib().bfs_drain_grid(wavefront, ctypes.byref(grid),
-                                    ctypes.byref(shared))
-    check_launch(err, "bfs_drain (launch plan)")
-    return grid.value, bool(shared.value)
-
-
-def _check(name, t, device):
-    if not (t.is_cuda and t.device == device):
-        raise ValueError(f"bfs_drain_cuda needs {name} on the CUDA device "
-                         f"of row_ptr, got {t.device} and {device}")
-    if t.dtype != _I32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous int32, got {t.dtype}")
+    return launch_plan(_lib().bfs_drain_grid, "bfs_drain", device_index,
+                       wavefront)
 
 
 def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
@@ -69,11 +52,11 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
     absolute round.  Launches on the current stream, allocates its scratch
     with PyTorch and makes no host sync.
     """
-    queue, state, rounds, processed = carry
+    queue, state, _, _ = carry
     device = row_ptr.device
     for name, t in (("row_ptr", row_ptr), ("col_idx", col_idx),
                     ("queue.buf", queue.buf), ("dist", state.dist)):
-        _check(name, t, device)
+        check_operand("bfs_drain_cuda", name, t, device)
     n, m, cap = state.dist.shape[0], col_idx.shape[0], queue.buf.shape[0]
     if row_ptr.shape[0] != n + 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries for "
@@ -86,17 +69,7 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
         raise ValueError("the graph and budget exceed the kernel's int32 "
                          "range")
     grid, wave_in_shared = _grid(device.index, wavefront)
-
-    if limit is None:
-        limit = max_rounds
-    if not isinstance(limit, torch.Tensor):
-        limit = torch.full((), min(int(limit), 2 ** 31 - 1), dtype=_I32,
-                           device=device)
-    counter = state.counter
-    cursors = torch.stack([
-        t.to(device=device, dtype=_I32).reshape(())
-        for t in (queue.head, queue.tail, queue.dropped, rounds, processed,
-                  counter.work, counter.splits, counter.rounds, limit)])
+    cursors = pack_cursors(carry, limit, max_rounds, device)
     buf = queue.buf.clone()
     dist = state.dist.clone()
     # scratch: unit nbr and candidate, then the block counts and the two
@@ -121,15 +94,7 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
     check_launch(err, "bfs_drain")
     bfs_drain_cuda.launches += 1
     bfs_drain_cuda.units_expanded = units_expanded
-
-    c = dict(zip(_CURSORS, cursors.unbind()))
-    queue = dataclasses.replace(queue, buf=buf, head=c["head"],
-                                tail=c["tail"], dropped=c["dropped"])
-    state = dataclasses.replace(
-        state, dist=dist,
-        counter=WorkCounter(work=c["work"], splits=c["splits"],
-                            rounds=c["counter_rounds"]))
-    return queue, state, c["rounds"], c["processed"]
+    return unpack_carry(carry, buf, cursors, dist=dist)
 
 
 #: launches of the kernel since the count was last set to 0

@@ -3,8 +3,9 @@
 The counterpart of ``repro/kernels/drain_loop/kernel.py``.  The reference
 traces any drain to a jaxpr and evaluates it inside one Pallas kernel, so
 its fused drain serves every program.  The GPU cannot evaluate a jaxpr, so
-the port writes one CUDA drain kernel per program (BFS:
-``kernels/drain_loop/bfs_drain.py``, ``csrc/bfs_drain.cu``) and keeps here
+the port writes one CUDA drain kernel per program (``bfs_drain.py``,
+``pagerank_drain.py``, ``coloring_drain.py`` beside this module, sources
+in ``csrc/``) and keeps here
 the generic plain version every such kernel is held against: a host loop
 over the same ``step`` and ``cond``, on any device.  It runs the
 megakernel cells on CPU tensors and on ``backend="torch"``.

@@ -38,9 +38,10 @@ _LATER_SLICES = {
 _DRAIN_KERNEL_ITEMS = {
     "bfs": "BFS at granularity > 1 or with per_item expansion comes with "
            "ROADMAP A8b",
+    "pagerank": "PageRank at granularity > 1 comes with ROADMAP A8b",
+    "coloring": "coloring at granularity > 1 comes with ROADMAP A8b",
 }
-_OTHER_DRAIN_KERNELS = ("each program needs a drain kernel of its own; "
-                        "PageRank's and coloring's come with ROADMAP A6")
+_OTHER_DRAIN_KERNELS = "each program needs a drain kernel of its own"
 
 
 class ExecutionResult(NamedTuple):

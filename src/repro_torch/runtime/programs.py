@@ -1,8 +1,7 @@
 """Program registry: compile (algorithm name, graph, config) -> AtosProgram.
 
-The counterpart of ``repro/runtime/programs.py``.  BFS is ported;
-PageRank and coloring follow on the same queue, frontier and scheduler
-(ROADMAP A6) and raise until then.
+The counterpart of ``repro/runtime/programs.py``: BFS, PageRank and
+coloring on the same queue, frontier and scheduler.
 """
 from __future__ import annotations
 
@@ -12,31 +11,26 @@ from ..core.scheduler import SchedulerConfig
 from ..graph.csr import CSRGraph
 from .program import AtosProgram
 
-_NOT_PORTED = ("coloring", "pagerank")
-
-
 def _factories():
     # lazy: the algorithm modules import repro_torch.runtime.program
-    from ..algorithms import bfs
+    from ..algorithms import bfs, coloring, pagerank
 
-    return {"bfs": bfs.make_program}
+    return {"bfs": bfs.make_program, "coloring": coloring.make_program,
+            "pagerank": pagerank.make_program}
 
 
 def algorithms() -> tuple:
-    """Registered algorithm names (stable order), ported or not."""
-    return tuple(sorted((*_factories(), *_NOT_PORTED)))
+    """Registered algorithm names (stable order)."""
+    return tuple(sorted(_factories()))
 
 
 def build_program(algorithm: str, graph: CSRGraph, cfg: SchedulerConfig,
                   params: Optional[Dict[str, Any]] = None,
                   queue_capacity: Optional[int] = None) -> AtosProgram:
     """Compile one drain.  ``params`` are the algorithm's keyword arguments
-    (BFS ``source``/``strategy``/``work_budget``); unknown keys raise
-    ``ValueError`` at build time."""
-    if algorithm in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{algorithm} is not ported yet (ROADMAP A6); this slice ports "
-            f"bfs")
+    (BFS ``source``/``strategy``/``work_budget``; PageRank ``damping``/
+    ``eps``/``check_size``/``work_budget``/``seed_count``; coloring takes
+    none); unknown keys raise ``ValueError`` at build time."""
     factories = _factories()
     if algorithm not in factories:
         raise ValueError(f"unknown algorithm {algorithm!r}; "

@@ -1,7 +1,9 @@
 """The PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version at the main path's shapes and edge sizes, BFS through both kernels
-against the plain backend, bit for bit, and the flash-attention kernel B5
-against ``attention_ref`` within its stated tolerance.
+against the plain backend, the ordered scatter-add against the CPU's
+sequential sum and the PageRank and coloring drain kernels against their
+persistent, plain and CPU drains, bit for bit, and the flash-attention
+kernel B5 against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -128,8 +130,8 @@ def test_stream_kernel_matches_plain(n_items, budget, how):
     assert stream_row_slices_cuda.launches - before == (n_items > 0)
 
 
-# ------------------------------------------- B3, the BFS drain megakernel
-def _setup(graph, policy, source=0, backend="auto", **kw):
+# ----------------------- B3, the drain megakernels (BFS, PageRank, coloring)
+def _algo_setup(graph, algo, policy, backend="auto", params=None, **kw):
     from repro_torch.core import SchedulerConfig
     from repro_torch.runtime import build_program, config_for, parse_policy
     from repro_torch.runtime.api import drain_setup
@@ -137,23 +139,29 @@ def _setup(graph, policy, source=0, backend="auto", **kw):
     base = dict(num_workers=64, fetch_size=2, backend=backend)
     base.update(kw)
     cfg = config_for(SchedulerConfig(**base), parse_policy(policy))
-    program = build_program("bfs", graph, cfg, params={"source": source})
-    return drain_setup(program, graph, cfg)
+    return drain_setup(build_program(algo, graph, cfg, params=params),
+                       graph, cfg)
 
 
-def _flat(carry):
-    queue, state, rounds, processed = carry
-    return ([queue.buf.cpu(), state.dist.cpu()],
-            [int(x) for x in (queue.head, queue.tail, queue.dropped, rounds,
-                              processed, state.counter.work,
-                              state.counter.splits, state.counter.rounds)])
+def _setup(graph, policy, source=0, backend="auto", **kw):
+    return _algo_setup(graph, "bfs", policy, backend, {"source": source},
+                       **kw)
+
+
+def _leaves(carry):
+    """Every tensor of a drain carry on the host, in tree order."""
+    from repro_torch.core.tree import tree_map
+
+    out = []
+    tree_map(lambda t: out.append(t.cpu()), carry)
+    return out
 
 
 def _assert_same(a, b):
-    (ta, sa), (tb, sb) = _flat(a), _flat(b)
-    assert sa == sb
-    for x, y in zip(ta, tb):
-        assert torch.equal(x, y)
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("graph", ["rmat(10)", "grid2d(32)"])
@@ -265,8 +273,159 @@ def test_megakernel_without_a_drain_kernel_raises_on_cuda(policy, params,
     cfg = config_for(SchedulerConfig(num_workers=8), parse_policy(policy))
     with pytest.raises(NotImplementedError, match=item):
         execute(build_program("bfs", g, cfg, params=params), g, cfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_program("coloring", g, cfg)
+    # PageRank and coloring have drain kernels at g1 only
+    g4 = config_for(SchedulerConfig(num_workers=8),
+                    parse_policy("single.megakernel.g4"))
+    for algo in ("pagerank", "coloring"):
+        with pytest.raises(NotImplementedError, match="A8b"):
+            execute(build_program(algo, g, g4), g, g4)
+
+
+# ------------------- the ordered scatter-add, B3-pr and B3-col (PageRank,
+# coloring)
+def _cpu_sequential_sum(base, index, values):
+    """The CPU's left-to-right sum (``index_add_`` on CPU tensors)."""
+    return base.cpu().clone().index_add_(0, index.cpu().long(),
+                                         values.cpu())
+
+
+def _scatter_inputs(case):
+    rng = np.random.default_rng(len(case))
+    if case == "one index 1e5 times, mixed magnitudes":
+        n, k = 1000, 100_000
+        index = np.full(k, 17)
+        index[::7] = rng.integers(0, n, size=len(index[::7]))
+        values = rng.standard_normal(k) * 10.0 ** rng.integers(-8, 8, size=k)
+    elif case == "PageRank round shape":
+        n, k = 1 << 16, 50_000
+        index = rng.integers(0, n, size=k)
+        index[rng.random(k) < 0.1] = 3             # a hub
+        values = rng.random(k) * 1e-3
+        values[-5000:] = 0.0                       # idle lanes add +0.0
+        index[-5000:] = np.arange(5000) % n
+    else:
+        n, k = 7, 1
+        index = np.array([6])
+        values = np.array([0.5])
+    base = torch.from_numpy(rng.random(n).astype(np.float32))
+    return (base, torch.from_numpy(index.astype(np.int32)),
+            torch.from_numpy(values.astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", ["one index 1e5 times, mixed magnitudes",
+                                  "PageRank round shape", "one update"])
+def test_ordered_scatter_add_matches_the_cpu_sum_bitwise(case):
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+    from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
+
+    base, index, values = _scatter_inputs(case)
+    want = _cpu_sequential_sum(base, index, values)
+    before = ordered_scatter_add_cuda.launches
+    got = ordered_scatter_add_cuda(base.cuda(), index.cuda(), values.cuda())
+    assert ordered_scatter_add_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    # the plain version on CUDA tensors (deterministic index_put_) sums in
+    # another order: the same on every run, equal within float rounding
+    plain = ordered_scatter_add_ref(base.cuda(), index.cuda(), values.cuda())
+    assert torch.equal(plain, ordered_scatter_add_ref(
+        base.cuda(), index.cuda(), values.cuda()))
+    scale = float(values.abs().sum()) + float(base.abs().max())
+    assert float((plain.cpu() - want).abs().max()) <= 1e-6 * scale
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def _drain_kernel_of(algo):
+    if algo == "pagerank":
+        from repro_torch.kernels.drain_loop.pagerank_drain import (
+            pagerank_drain_cuda as kernel)
+    else:
+        from repro_torch.kernels.drain_loop.coloring_drain import (
+            coloring_drain_cuda as kernel)
+    return kernel
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "coloring"])
+@pytest.mark.parametrize("graph", ["rmat(10)", "grid2d(32)"])
+@pytest.mark.parametrize("workers", [64, 8192])
+def test_drain_kernel_matches_persistent_plain_and_cpu(algo, graph, workers):
+    """The drain, counters and final queue against the persistent cell on
+    the kernels and, at 64 workers, against the plain fused drain on the
+    card and the persistent drain on the CPU.  8192 workers x 4 put the
+    wavefront past shared memory, on the global-scratch path."""
+    _require_cuda()
+    from repro_torch.core import (megakernel_drive, no_host_sync,
+                                  persistent_drive)
+    from repro_torch.graph import grid2d, rmat
+
+    g = (rmat(10, 16, seed=2, device="cuda") if graph == "rmat(10)"
+         else grid2d(32, 32, device="cuda"))
+    kw = dict(num_workers=workers, fetch_size=4 if workers > 64 else 2)
+    persistent = _algo_setup(g, algo, "single.persistent", **kw)
+    want = persistent_drive(persistent.step, persistent.cond,
+                            persistent.carry)
+    mega = _algo_setup(g, algo, "single.megakernel", **kw)
+    kernel = _drain_kernel_of(algo)
+    before = kernel.launches
+    with no_host_sync(g.device):
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    _assert_same(got, want)
+    assert int(got[0].dropped) == 0 and int(got[2]) > 1
+    if algo == "coloring":
+        from repro_torch.algorithms.coloring import validate_coloring
+
+        assert validate_coloring(g, got[1].colors)
+    else:
+        assert float(got[1].residue.max()) <= 1e-6
+    if workers == 64:
+        plain = _algo_setup(g, algo, "single.megakernel", backend="torch",
+                            **kw)
+        assert plain.kernel is None
+        want_plain = megakernel_drive(plain.step, plain.cond, plain.carry)
+        if algo == "coloring":
+            _assert_same(got, want_plain)
+        else:
+            # the plain scatter-add on CUDA tensors sums in another order
+            # (kernels/scatter_add/ref.py): the eps contract
+            assert float(want_plain[1].residue.max()) <= 1e-6
+            assert float((want_plain[1].rank - got[1].rank).abs().max()) \
+                < 1e-3
+        cpu = g.to("cpu")
+        host = _algo_setup(cpu, algo, "single.persistent", **kw)
+        _assert_same(got, persistent_drive(host.step, host.cond,
+                                                  host.carry))
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "coloring"])
+@pytest.mark.parametrize("every", [1, 3])
+def test_drain_kernel_segments_equal_the_whole_drain(algo, every):
+    _require_cuda()
+    from repro_torch.core import megakernel_drive, megakernel_segment
+    from repro_torch.graph import rmat
+
+    g = rmat(9, 16, seed=2, device="cuda")
+    whole = _algo_setup(g, algo, "single.megakernel")
+    want = megakernel_drive(whole.step, whole.cond, whole.carry,
+                            kernel=whole.kernel)
+    cut = _algo_setup(g, algo, "single.megakernel")
+    seg = megakernel_segment(cut.step, cut.cond, cut.carry,
+                             kernel=cut.kernel)
+    carry, limit, segments = cut.carry, 0, 0
+    while bool(cut.cond(carry)):
+        limit += every
+        carry = seg(carry, limit)
+        segments += 1
+        assert int(carry[2]) == min(limit, int(want[2]))
+    assert segments == -(-int(want[2]) // every)
+    _assert_same(carry, want)
+    short = _algo_setup(g, algo, "single.megakernel", max_rounds=5)
+    cut5 = megakernel_drive(short.step, short.cond, short.carry,
+                            kernel=short.kernel)
+    assert int(cut5[2]) == 5
 
 
 # ------------------------------------------------ B5, flash attention

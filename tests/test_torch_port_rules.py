@@ -1,7 +1,7 @@
 """Rules of the PyTorch port: it imports neither JAX nor the reference
 package; its entry points run on the card unless the caller asks for the
 CPU; the ``"cuda"`` backend never runs on CPU tensors; unported cells and
-algorithms raise naming their ROADMAP item; the megakernel cell runs the
+options raise naming their ROADMAP item; the megakernel cell runs the
 plain fused drain on CPU tensors; ``chip_smoke.py`` fails, and prints no
 result, away from the repository."""
 import ast
@@ -107,6 +107,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         bfs_drain_cuda(setup.carry, g.row_ptr, g.col_idx, wavefront=2,
                        budget=8, max_rounds=10)
+    from repro_torch.kernels.drain_loop.coloring_drain import (
+        coloring_drain_cuda)
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
+
+    setup = drain_setup(build_program("pagerank", g, cfg), g, cfg)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pagerank_drain_cuda(setup.carry, g.row_ptr, g.col_idx, wavefront=2,
+                            budget=8, n_check=4, damping=0.85, eps=1e-6,
+                            max_rounds=10)
+    setup = drain_setup(build_program("coloring", g, cfg), g, cfg)
+    with pytest.raises(ValueError, match="CUDA device"):
+        coloring_drain_cuda(setup.carry, g.row_ptr, g.col_idx, wavefront=2,
+                            max_degree=4, max_rounds=10)
 
 
 def test_policy_matrix_parses_like_jax():
@@ -166,9 +180,6 @@ def test_cpu_megakernel_is_the_plain_fused_drain_in_one_launch():
 def test_unported_algorithms_and_trace_raise():
     g = tg.grid2d(3, 3, device="cpu")
     cfg = SchedulerConfig(num_workers=2)
-    for algo in ("pagerank", "coloring"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            build_program(algo, g, cfg)
     with pytest.raises(NotImplementedError, match="A10"):
         execute(build_program("bfs", g, cfg), g, cfg, trace=[])
     with pytest.raises(ValueError, match="unknown bfs params"):
