@@ -44,6 +44,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      torch, bitwise equal; valid, checked on the card), megakernel as one
      launch of B3-col equal to it, queue and counters included; segments;
      at rmat(14) the kernel drain equals the plain fused drain;
+  4e. the megakernel beyond G = 1, one launch of each program's drain
+     kernel and none of B1, B2 or the ordered scatter-add: BFS merge path at
+     ``single.megakernel.g4`` on rmat and grid2d against scipy, the
+     persistent g4 cell (queue and counters included) and its own 64-round
+     segments; BFS per_item at g1 and g4 on grid2d against scipy and the
+     persistent per_item cell, at g1 on rmat against scipy and, over its
+     first 64 rounds, against the persistent per_item cell and the plain
+     fused drain cut alike (their padded rounds at full size); PageRank g4 on
+     rmat and grid2d converged within its bounds, equal to the persistent
+     g4 cell over its first 512 rounds, segments equal to the whole;
+     coloring g4 valid and equal to the persistent g4 cell over its first
+     128 rounds; at rmat(14) each configuration's whole drain equal to the
+     plain fused drain (PageRank's run on the CPU); one warm drain of each
+     cell timed (host clock, device time, busy share) and the kernel
+     against its plain version;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events -- and the main drain
@@ -641,34 +656,37 @@ def carry_err(a, b) -> float:
                 for x, y in zip(la, lb) if x.numel()), default=0.0)
 
 
-def first_rounds_times(algo: str, graph, kernel_name: str) -> dict:
+def first_rounds_times(algo: str, graph, kernel_name: str,
+                       suffix: str = "") -> dict:
     """The kernel and the plain fused drain (backend torch) on the same
-    inputs, the first FIRST_ROUNDS rounds of the main drain: device time
-    by the profiler (CUDA events around the kernel beside it), and what
-    those rounds moved.  The kernel's carry is held bitwise against a
+    inputs, the first FIRST_ROUNDS rounds of the main drain at the policy
+    suffix ``suffix`` (``""`` for g1, ``".g4"``): device time by the
+    profiler (CUDA events around the whole drive, setup included, beside
+    it), and what those rounds moved.  The kernel's carry is held bitwise against a
     plain version at this shape: for coloring the plain drain on the
     card; for PageRank, whose plain scatter-add on CUDA tensors sums in
     another order (kernels/scatter_add/ref.py), the plain drain on the
     CPU over the graph copied there, which sums in update order."""
     wrapper = _wrappers()[kernel_name]
     params = PR_PARAMS if algo == "pagerank" else None
-    cfg_k = algo_config("single.megakernel")
-    cfg_t = algo_config("single.megakernel", backend="torch")
+    cfg_k = algo_config("single.megakernel" + suffix)
+    cfg_t = algo_config("single.megakernel" + suffix, backend="torch")
     carry, _ = drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS)
     counted = (int(wrapper.units_expanded) if algo == "pagerank"
                else int(wrapper.visits))
     _, k_rows = device_profile(
         lambda: drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS))
-    k_ms = sum(ms for key, ms, _ in k_rows if kernel_name in key)
+    k_ms = kernel_device_ms(k_rows, kernel_name)
     ev_ms = cuda_ms(lambda: drive(algo, graph, cfg_k, params,
                                   limit=FIRST_ROUNDS), reps=3, warmup=1)
     held = {}
     p_ms, _ = device_profile(lambda: held.update(out=drive(
         algo, graph, cfg_t, params, limit=FIRST_ROUNDS)))
     plain_carry, plain_secs = held["out"]
+    if p_ms is None:
+        raise AssertionError(f"{algo}: the profiler saw no device time of "
+                             f"the plain fused drain")
     timed_by = "profiler device time"
-    if not k_ms or p_ms is None:
-        k_ms, p_ms, timed_by = ev_ms, 1e3 * plain_secs, "cuda events / wall"
     if int(plain_carry[2]) != int(carry[2]):
         raise AssertionError(f"{algo}: the plain fused drain ran "
                              f"{int(plain_carry[2])} rounds, not "
@@ -683,7 +701,8 @@ def first_rounds_times(algo: str, graph, kernel_name: str) -> dict:
         t0 = time.perf_counter()
         plain = host_plain_drain(
             algo, graph.to("cpu"),
-            algo_config("single.discrete", max_rounds=FIRST_ROUNDS), params)
+            algo_config("single.discrete" + suffix, max_rounds=FIRST_ROUNDS),
+            params)
         out["cpu_plain_seconds"] = time.perf_counter() - t0
         out["plain_on_cuda_max_abs_err"] = carry_err(carry, plain_carry)
         held_against = "the plain drain on the CPU (graph copied there)"
@@ -1026,6 +1045,442 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
     log(f"    first {out['first_rounds_n']} rounds: the kernel's carry "
         f"equals {first['held_against']} bit for bit (max |diff| "
         f"{first['max_abs_err']})")
+    return out
+
+
+# -------------------------------- phase 4e: the megakernel beyond G = 1
+WIDE = ".g4"                       # the policy suffix of the wide cells
+PR_CUT = 512                       # rounds of the PageRank cells held bitwise
+COL_CUT = 128                      # rounds of the coloring cells held bitwise
+PI_CUT = 64                        # rounds of the per_item cells held bitwise
+
+
+def same_or_raise(label: str, got, want) -> None:
+    if not same_leaves(got, want):
+        raise AssertionError(f"{label}: {scalars(got)} vs {scalars(want)} "
+                             f"(max |diff| {carry_err(got, want)})")
+
+
+def kernel_device_ms(rows, kernel_name: str) -> float:
+    """The profiler's device ms of ``kernel_name``'s rows; raises where the
+    profiler saw no such kernel, so that no other time stands in for it."""
+    ms = sum(t for key, t, _ in rows if kernel_name in key)
+    if not ms > 0:
+        raise AssertionError(f"the profiler saw no {kernel_name} kernel: "
+                             f"{[key[:60] for key, _, _ in rows[:8]]}")
+    return ms
+
+
+def profiled_drive(algo: str, graph, cfg, kernel_name: str | None,
+                   params=None) -> dict:
+    """One warm drain under the profiler: host seconds, device ms, the
+    kernel's device ms (``kernel_name`` None: the plain drain's whole device
+    time) and the busy share.  Raises where the profiler saw no device
+    time or not the kernel."""
+    held = {}
+    dev_ms, rows = device_profile(lambda: held.update(
+        out=drive(algo, graph, cfg, params)))
+    carry, secs = held["out"]
+    if dev_ms is None:
+        raise AssertionError(f"{algo}: the profiler saw no device time")
+    k_ms = dev_ms if kernel_name is None else kernel_device_ms(rows,
+                                                               kernel_name)
+    return {"carry": carry, "seconds": secs, "device_ms": dev_ms,
+            "kernel_ms": k_ms, "timed_by": "profiler device time",
+            "busy_share": dev_ms / (1e3 * secs), "rows": rows[:8]}
+
+
+def bfs_bytes(units: int, carry) -> int:
+    """Bytes a BFS drain must move: per unit its col_idx word and dist[nbr]
+    (8); per pop its ring word and two row_ptr words (12); per push its
+    ring word (4)."""
+    return 8 * units + 12 * int(carry[3]) + 4 * int(carry[0].tail)
+
+
+def per_item_cut(graph, params, card: str) -> dict:
+    """BFS per_item g1 at the main path's size, cut at PI_CUT rounds: the
+    drain kernel, the persistent per_item cell and the plain fused drain
+    (backend torch), bit for bit (dist, RunStats, counters with splits,
+    final queue); the kernel and the plain drain timed over those rounds.
+    Both plain forms pad each round to [W, max_degree] lanes."""
+    from repro_torch.algorithms.common import max_degree_of
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+
+    cfg_k = algo_config("single.megakernel", max_rounds=PI_CUT)
+    reset_counts()
+    kern = profiled_drive("bfs", graph, cfg_k, "bfs_drain", params)
+    counts = read_counts()
+    units = int(bfs_drain_cuda.units_expanded)
+    if counts != only(bfs_drain=1):
+        raise AssertionError(f"per_item g1 cut: expected one BFS drain "
+                             f"launch and no other, got {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    carry_p, secs_p = drive("bfs", graph, algo_config(
+        "single.persistent", max_rounds=PI_CUT), params)
+    peak = torch.cuda.max_memory_allocated()
+    same_or_raise(f"per_item g1 rmat, {PI_CUT} rounds, megakernel vs "
+                  f"persistent", kern["carry"], carry_p)
+    plain = profiled_drive("bfs", graph, algo_config(
+        "single.megakernel", max_rounds=PI_CUT, backend="torch"), None,
+        params)
+    same_or_raise(f"per_item g1 rmat, {PI_CUT} rounds, kernel vs the plain "
+                  f"fused drain", kern["carry"], plain["carry"])
+    torch.cuda.empty_cache()           # the padded rounds' cached blocks
+    carry = kern["carry"]
+    out = {"carry": scalars(carry), "rounds": int(carry[2]), "units": units,
+           "counts": counts, "kernel_ms": kern["kernel_ms"],
+           "timed_by": kern["timed_by"], "kernel_seconds": kern["seconds"],
+           "plain_ms": plain["device_ms"], "plain_seconds": plain["seconds"],
+           "persistent_seconds": secs_p, "persistent_peak_bytes": peak,
+           "padded_tensor_bytes": 4 * cfg_k.wavefront * max_degree_of(graph),
+           "max_abs_err": carry_err(carry, plain["carry"]),
+           "bound_bytes": bfs_bytes(units, carry)}
+    log(f"    BFS per_item g1 rmat, the first {out['rounds']} rounds "
+        f"(max_rounds {PI_CUT}): the drain kernel equals single.persistent "
+        f"per_item and the plain fused drain bit for bit, queue and counters "
+        f"included (splits {out['carry'][6]}); kernel {out['kernel_ms']:.3f}"
+        f" ms, plain fused drain {out['plain_ms']:.3f} ms device "
+        f"({out['plain_seconds']:.3f} s host), bound "
+        f"{1e3 * out['bound_bytes'] / HBM_BYTES_PER_S:.4f} ms; persistent "
+        f"{secs_p:.3f} s, peak {peak / 2 ** 30:.2f} GiB allocated (padded "
+        f"int32 round {out['padded_tensor_bytes'] / 2 ** 30:.2f} GiB)  "
+        f"[{card}]")
+    return out
+
+
+def wide_bfs(graph, grid, source: int, want, want_grid, card: str,
+             small_scale: int) -> dict:
+    """Phase 4e, BFS: merge path at g4 and per_item at g1 and g4 through
+    the BFS drain kernel, against scipy, the persistent cells, segments and
+    the plain fused drain."""
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+
+    out = {}
+    for label, g, src, want_d in (("rmat", graph, source, want),
+                                  ("grid2d", grid, 0, want_grid)):
+        params = {"source": src}
+        carry_p, secs_p = drive("bfs", g, algo_config("single.persistent"
+                                                      + WIDE), params)
+        reset_counts()
+        carry_m, secs_m = drive("bfs", g,
+                                algo_config("single.megakernel" + WIDE),
+                                params)
+        counts = read_counts()
+        units = int(bfs_drain_cuda.units_expanded)
+        if counts != only(bfs_drain=1):
+            raise AssertionError(f"BFS g4 {label}: expected one BFS drain "
+                                 f"launch and no other, got {counts}")
+        if int(carry_m[0].dropped) or not np.array_equal(
+                carry_m[1].dist.cpu().numpy(), want_d):
+            raise AssertionError(f"BFS g4 {label}: dist differs from scipy "
+                                 f"or items were dropped")
+        same_or_raise(f"BFS g4 {label} megakernel vs persistent", carry_m,
+                      carry_p)
+        seg, segments = segmented("bfs", g, algo_config("single.megakernel"
+                                                        + WIDE), 64, params)
+        same_or_raise(f"BFS g4 {label} segments vs whole", seg, carry_m)
+        out[label] = {"carry": scalars(carry_m), "units": units,
+                      "counts": counts, "persistent_seconds": secs_p,
+                      "megakernel_seconds": secs_m, "segments_of_64":
+                      segments}
+        if label == "grid2d":               # rmat's warm drain is below
+            warm = profiled_drive("bfs", g, algo_config(
+                "single.megakernel" + WIDE), "bfs_drain", params)
+            same_or_raise("BFS g4 grid2d: two drains", warm["carry"],
+                          carry_m)
+            out[label]["timing"] = {k: v for k, v in warm.items()
+                                    if k != "carry"}
+            log(f"    BFS g4 grid2d warm: {warm['seconds']:.4f} s host, "
+                f"bfs_drain {warm['kernel_ms']:.3f} ms device, busy share "
+                f"{warm['busy_share']}  [{card}]")
+        log(f"    BFS merge_path single.megakernel.g4 {label}: one "
+            f"bfs_drain launch, dist equals scipy; dist, RunStats, counters "
+            f"(splits {scalars(carry_m)[6]}) and final queue equal "
+            f"single.persistent.g4; {segments} segments of 64 rounds equal "
+            f"the whole; {int(carry_m[2])} rounds, {units} units; "
+            f"persistent {secs_p:.3f} s, megakernel {secs_m:.4f} s  [{card}]")
+
+    # the g4 drain timed: warm, under the profiler, and the plain fused
+    # drain (backend torch, the plain stream) at full size beside it
+    params = {"source": source}
+    cfg_k = algo_config("single.megakernel" + WIDE)
+    warm = profiled_drive("bfs", graph, cfg_k, "bfs_drain", params)
+    plain = profiled_drive("bfs", graph, algo_config("single.megakernel"
+                                                     + WIDE, backend="torch"),
+                           None, params)
+    same_or_raise("BFS g4 kernel vs the plain fused drain", warm["carry"],
+                  plain["carry"])
+    carry_m = warm["carry"]
+    out["timing"] = {k: v for k, v in warm.items() if k != "carry"}
+    out["plain"] = {"seconds": plain["seconds"],
+                    "device_ms": plain["device_ms"], "rows": plain["rows"],
+                    "max_abs_err": carry_err(carry_m, plain["carry"])}
+    out["bound_bytes"] = bfs_bytes(out["rmat"]["units"], carry_m)
+    log(f"    BFS g4 rmat warm: {warm['seconds']:.4f} s host, bfs_drain "
+        f"{warm['kernel_ms']:.3f} ms device ({warm['timed_by']}), busy "
+        f"share {warm['busy_share']}; plain fused drain {plain['seconds']:.3f}"
+        f" s host, {plain['device_ms']} ms device, equal bit for bit  "
+        f"[{card}]")
+
+    # per_item: grid2d whole at g1 and g4 against the persistent per_item
+    # cell and scipy; rmat whole at g1 against scipy, timed
+    for G in (1, 4):
+        suffix = "" if G == 1 else WIDE
+        params = {"source": 0, "strategy": "per_item"}
+        carry_p, _ = drive("bfs", grid, algo_config("single.persistent"
+                                                    + suffix), params)
+        reset_counts()
+        carry_m, secs = drive("bfs", grid, algo_config("single.megakernel"
+                                                       + suffix), params)
+        counts = read_counts()
+        if counts != only(bfs_drain=1) or not np.array_equal(
+                carry_m[1].dist.cpu().numpy(), want_grid):
+            raise AssertionError(f"per_item g{G} grid2d: {counts} or dist "
+                                 f"differs from scipy")
+        same_or_raise(f"per_item g{G} grid2d megakernel vs persistent",
+                      carry_m, carry_p)
+        warm = profiled_drive("bfs", grid, algo_config(
+            "single.megakernel" + suffix), "bfs_drain", params)
+        same_or_raise(f"per_item g{G} grid2d: two drains", warm["carry"],
+                      carry_m)
+        out[f"per_item_grid_g{G}"] = {
+            "carry": scalars(carry_m), "seconds": secs,
+            "timing": {k: v for k, v in warm.items() if k != "carry"}}
+        log(f"    BFS per_item single.megakernel g{G} grid2d: one launch, "
+            f"equals scipy and single.persistent per_item g{G} (queue "
+            f"included); {int(carry_m[2])} rounds, {secs:.4f} s; warm "
+            f"{warm['seconds']:.4f} s host, bfs_drain "
+            f"{warm['kernel_ms']:.3f} ms device, busy share "
+            f"{warm['busy_share']}  [{card}]")
+    params = {"source": source, "strategy": "per_item"}
+    reset_counts()
+    carry_m, secs = drive("bfs", graph, algo_config("single.megakernel"),
+                          params)
+    counts = read_counts()
+    units = int(bfs_drain_cuda.units_expanded)
+    if counts != only(bfs_drain=1) or int(carry_m[0].dropped) \
+            or not np.array_equal(carry_m[1].dist.cpu().numpy(), want):
+        raise AssertionError(f"per_item g1 rmat: {counts} or dist differs "
+                             f"from scipy")
+    warm = profiled_drive("bfs", graph, algo_config("single.megakernel"),
+                          "bfs_drain", params)
+    same_or_raise("per_item g1 rmat: two drains", warm["carry"], carry_m)
+    out["per_item_rmat_g1"] = {
+        "carry": scalars(carry_m), "units": units, "first_seconds": secs,
+        "counts": counts,
+        "timing": {k: v for k, v in warm.items() if k != "carry"},
+        "bound_bytes": bfs_bytes(units, carry_m)}
+    log(f"    BFS per_item single.megakernel g1 rmat: one launch, dist "
+        f"equals scipy; {int(carry_m[2])} rounds, {units} units; warm "
+        f"{warm['seconds']:.4f} s host, bfs_drain {warm['kernel_ms']:.3f} ms "
+        f"device, busy share {warm['busy_share']}  [{card}]")
+    out["per_item_rmat_g1"]["cut"] = per_item_cut(graph, params, card)
+
+    # rmat(small): each configuration whole against the plain fused drain,
+    # and per_item against its persistent cell too
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    small_source = int(torch.argmax(small.degrees()))
+    want_small = host_bfs(small, small_source)
+    for name, suffix, strategy in (("merge_path g4", WIDE, "merge_path"),
+                                   ("per_item g1", "", "per_item"),
+                                   ("per_item g4", WIDE, "per_item")):
+        params = {"source": small_source, "strategy": strategy}
+        cfg_k = algo_config("single.megakernel" + suffix, workers=256)
+        warm = profiled_drive("bfs", small, cfg_k, "bfs_drain", params)
+        reset_counts()
+        plain = profiled_drive("bfs", small, algo_config(
+            "single.megakernel" + suffix, workers=256, backend="torch"), None,
+            params)
+        if any(read_counts().values()):
+            raise AssertionError("the plain fused drain launched a kernel")
+        same_or_raise(f"rmat({small_scale}) BFS {name} kernel vs plain",
+                      warm["carry"], plain["carry"])
+        if not np.array_equal(warm["carry"][1].dist.cpu().numpy(),
+                              want_small):
+            raise AssertionError(f"rmat({small_scale}) BFS {name}: dist "
+                                 f"differs from scipy")
+        if strategy == "per_item":
+            carry_p, _ = drive("bfs", small, algo_config(
+                "single.persistent" + suffix, workers=256), params)
+            same_or_raise(f"rmat({small_scale}) BFS {name} vs persistent",
+                          warm["carry"], carry_p)
+        carry = warm["carry"]
+        out[f"small {name}"] = {
+            "carry": scalars(carry), "kernel_ms": warm["kernel_ms"],
+            "timed_by": warm["timed_by"], "plain_ms": plain["device_ms"],
+            "plain_seconds": plain["seconds"],
+            "units": int(bfs_drain_cuda.units_expanded),
+            "max_abs_err": carry_err(carry, plain["carry"])}
+        also = (" and the persistent per_item cell"
+                if strategy == "per_item" else "")
+        log(f"    rmat({small_scale}) W=1024 BFS {name}: the drain kernel "
+            f"equals the plain fused drain bit for bit{also} and scipy; kernel {warm['kernel_ms']:.3f} ms, plain "
+            f"{plain['device_ms']} ms device; {scalars(carry)}  [{card}]")
+    return out
+
+
+def wide_pagerank(graph, grid, card: str, small_scale: int) -> dict:
+    """Phase 4e, PageRank at g4 through B3-pr: converged within its bounds,
+    bitwise equal to the persistent g4 cell cut at PR_CUT rounds, segments
+    equal to the whole; at rmat(small) equal to the plain drain on the
+    CPU; the first rounds timed against the plain fused drain."""
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
+
+    out = {}
+    cfg_m = algo_config("single.megakernel" + WIDE)
+    for label, g in (("rmat", graph), ("grid2d", grid)):
+        reset_counts()
+        state, stats, info, secs = run_algo("pagerank", g, cfg_m, PR_PARAMS)
+        counts = read_counts()
+        units = int(pagerank_drain_cuda.units_expanded)
+        max_res = float(state.residue.max())
+        if counts != only(pagerank_drain=1) or info["launches"] != 1:
+            raise AssertionError(f"PageRank g4 {label}: expected one "
+                                 f"PageRank drain launch, got {counts}")
+        if not (info["rounds"] < cfg_m.max_rounds
+                and max_res <= PR_PARAMS["eps"] and info["dropped"] == 0):
+            raise AssertionError(f"PageRank g4 {label} did not converge: "
+                                 f"{info}, max_residue {max_res}")
+        inv = pagerank_invariant(g, state, units, int(state.counter.work))
+        if not (inv["sum_rel_err"] <= inv["bound"]
+                and inv["ref_max_rel_err"] <= inv["ref_limit"]):
+            raise AssertionError(f"PageRank g4 {label} outside its bounds: "
+                                 f"{inv}")
+        cut_m, _ = drive("pagerank", g, algo_config(
+            "single.megakernel" + WIDE, max_rounds=PR_CUT), PR_PARAMS)
+        cut_p, secs_p = drive("pagerank", g, algo_config(
+            "single.persistent" + WIDE, max_rounds=PR_CUT), PR_PARAMS)
+        same_or_raise(f"PageRank g4 {label} megakernel vs persistent, "
+                      f"{PR_CUT} rounds", cut_m, cut_p)
+        whole = profiled_drive("pagerank", g, cfg_m, "pagerank_drain",
+                               PR_PARAMS)
+        if not same_leaves(whole["carry"][1], state):
+            raise AssertionError(f"PageRank g4 {label}: two drains differ")
+        seg, segments = segmented("pagerank", g, cfg_m, 64, PR_PARAMS)
+        same_or_raise(f"PageRank g4 {label} segments vs whole", seg,
+                      whole["carry"])
+        carry = whole["carry"]
+        n_check = min(1024 * PR_PARAMS["check_size"], g.num_vertices)
+        out[label] = {
+            "info": info, "counts": counts, "units": units,
+            "max_residue": max_res, "invariant": inv,
+            "work_per_n": int(state.counter.work) / g.num_vertices,
+            "first_seconds": secs, "segments_of_64": segments,
+            "persistent_cut_seconds": secs_p,
+            "timing": {k: v for k, v in whole.items() if k != "carry"},
+            "bound_bytes": pagerank_bytes(
+                units, int(state.counter.work), int(stats.items_processed),
+                info["rounds"], n_check,
+                int(carry[0].tail) - g.num_vertices)}
+        log(f"    PageRank single.megakernel.g4 {label}: one pagerank_drain "
+            f"launch, {info['rounds']} rounds, splits {info['splits']}, "
+            f"converged (max residue {max_res:.3g}); invariant "
+            f"{inv['sum_rel_err']:.4g} <= {inv['bound']:.4g}, "
+            f"{inv['ref_max_rel_err']:.3g} from float64 (limit 1e-3); the "
+            f"first {PR_CUT} rounds equal single.persistent.g4's bit for bit "
+            f"(persistent {secs_p:.2f} s); {segments} segments of 64 rounds "
+            f"equal the whole; warm {whole['seconds']:.3f} s host, "
+            f"pagerank_drain {whole['kernel_ms']:.3f} ms device, busy share "
+            f"{whole['busy_share']}  [{card}]")
+
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    small_k, _ = drive("pagerank", small, algo_config(
+        "single.megakernel" + WIDE, workers=256), PR_PARAMS)
+    t0 = time.perf_counter()
+    small_h = host_plain_drain("pagerank", small.to("cpu"), algo_config(
+        "single.discrete" + WIDE, workers=256), PR_PARAMS)
+    host_secs = time.perf_counter() - t0
+    same_or_raise(f"rmat({small_scale}) PageRank g4 kernel vs the plain "
+                  f"drain on the CPU", small_k, small_h)
+    log(f"    rmat({small_scale}) W=1024 PageRank g4: the drain kernel "
+        f"equals the plain fused drain run on the CPU bit for bit "
+        f"({host_secs:.1f} s there); {scalars(small_k)}  [{card}]")
+    out["small"] = {"carry": scalars(small_k), "cpu_seconds": host_secs}
+    first = first_rounds_times("pagerank", graph, "pagerank_drain", WIDE)
+    fc = first["carry"]
+    n_check = min(1024 * PR_PARAMS["check_size"], graph.num_vertices)
+    out["first_rounds"] = {k: v for k, v in first.items() if k != "carry"}
+    out["first_bound_ms"] = 1e3 * pagerank_bytes(
+        first["counted"], int(fc[1].counter.work), int(fc[3]), int(fc[2]),
+        n_check, int(fc[0].tail) - graph.num_vertices) / HBM_BYTES_PER_S
+    log(f"    PageRank g4 first {FIRST_ROUNDS} rounds: kernel "
+        f"{first['ms']} ms, plain fused drain {first['plain_ms']} ms "
+        f"device, bound {out['first_bound_ms']:.4f} ms; the kernel's carry "
+        f"equals {first['held_against']} bit for bit  [{card}]")
+    return out
+
+
+def wide_coloring(graph, card: str, small_scale: int) -> dict:
+    """Phase 4e, coloring at g4 through B3-col: valid, equal to the
+    persistent g4 cell cut at COL_CUT rounds; at rmat(small) equal to the
+    plain fused drain; the first rounds timed against it."""
+    from repro_torch.algorithms.coloring import validate_coloring
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.drain_loop.coloring_drain import (
+        coloring_drain_cuda)
+
+    cfg_m = algo_config("single.megakernel" + WIDE)
+    reset_counts()
+    state, stats, info, secs = run_algo("coloring", graph, cfg_m)
+    counts = read_counts()
+    visits = int(coloring_drain_cuda.visits)
+    if counts != only(coloring_drain=1) or info["launches"] != 1:
+        raise AssertionError(f"coloring g4: expected one coloring drain "
+                             f"launch, got {counts}")
+    if info["dropped"] or not validate_coloring(graph, state.colors):
+        raise AssertionError(f"coloring g4 is not valid: {info}")
+    cut_m, _ = drive("coloring", graph, algo_config(
+        "single.megakernel" + WIDE, max_rounds=COL_CUT))
+    cut_p, secs_p = drive("coloring", graph, algo_config(
+        "single.persistent" + WIDE, max_rounds=COL_CUT))
+    same_or_raise(f"coloring g4 megakernel vs persistent, {COL_CUT} rounds",
+                  cut_m, cut_p)
+    whole = profiled_drive("coloring", graph, cfg_m, "coloring_drain")
+    if not same_leaves(whole["carry"][1], state):
+        raise AssertionError("coloring g4: two drains differ")
+    carry = whole["carry"]
+    n = graph.num_vertices
+    out = {"info": info, "counts": counts, "visits": visits,
+           "colors": int(state.colors.max()) + 1,
+           "work_per_n": int(state.counter.work) / n, "first_seconds": secs,
+           "persistent_cut_seconds": secs_p,
+           "timing": {k: v for k, v in whole.items() if k != "carry"},
+           "bound_bytes": coloring_bytes(visits, int(stats.items_processed),
+                                         int(state.counter.work),
+                                         int(carry[0].tail) - n)}
+    log(f"    coloring single.megakernel.g4 rmat: one coloring_drain launch, "
+        f"valid, {out['colors']} colors, {info['rounds']} rounds, splits "
+        f"{info['splits']}; the first {COL_CUT} rounds equal "
+        f"single.persistent.g4's, queue and counters included (persistent "
+        f"{secs_p:.2f} s); warm {whole['seconds']:.4f} s host, "
+        f"coloring_drain {whole['kernel_ms']:.3f} ms device, busy share "
+        f"{whole['busy_share']}  [{card}]")
+
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    small_k, _ = drive("coloring", small, algo_config(
+        "single.megakernel" + WIDE, workers=256))
+    reset_counts()
+    small_t, _ = drive("coloring", small, algo_config(
+        "single.megakernel" + WIDE, workers=256, backend="torch"))
+    if any(read_counts().values()):
+        raise AssertionError("the plain fused drain launched a kernel")
+    same_or_raise(f"rmat({small_scale}) coloring g4 kernel vs plain",
+                  small_k, small_t)
+    log(f"    rmat({small_scale}) W=1024 coloring g4: the drain kernel equals "
+        f"the plain fused drain bit for bit; {scalars(small_k)}  [{card}]")
+    out["small"] = {"carry": scalars(small_k)}
+    first = first_rounds_times("coloring", graph, "coloring_drain", WIDE)
+    fc = first["carry"]
+    out["first_rounds"] = {k: v for k, v in first.items() if k != "carry"}
+    out["first_bound_ms"] = 1e3 * coloring_bytes(
+        first["counted"], int(fc[3]), int(fc[1].counter.work),
+        int(fc[0].tail) - n) / HBM_BYTES_PER_S
+    log(f"    coloring g4 first {FIRST_ROUNDS} rounds: kernel {first['ms']} "
+        f"ms, plain fused drain {first['plain_ms']} ms device, bound "
+        f"{out['first_bound_ms']:.4f} ms; equal bit for bit  [{card}]")
     return out
 
 
@@ -1593,6 +2048,14 @@ def main() -> int:
     log(f"[4d] coloring rmat({args.scale}) W=4096 g1: single.persistent (B1, "
         f"B2) and single.megakernel (B3-col)")
     col = coloring_path(graph, card, min(args.scale, 14))
+    log(f"[4e] the megakernel beyond G = 1: BFS merge_path g4 and per_item "
+        f"g1/g4, PageRank g4, coloring g4 on rmat({args.scale}) and "
+        f"grid2d({side},{side}), each one launch of its drain kernel")
+    wide = {"bfs": wide_bfs(graph, grid, source, want, want_grid, card,
+                            min(args.scale, 14)),
+            "pagerank": wide_pagerank(graph, grid, card,
+                                      min(args.scale, 14)),
+            "coloring": wide_coloring(graph, card, min(args.scale, 14))}
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -1697,13 +2160,11 @@ def main() -> int:
     held = {}
     mega_dev_ms, mega_rows = device_profile(
         lambda: held.update(secs=drain(graph, cfg_mega, source)[3]))
-    b3_ms = sum(ms for key, ms, _ in mega_rows if "bfs_drain" in key)
+    b3_ms = kernel_device_ms(mega_rows, "bfs_drain")
     b3_event_ms = cuda_ms(lambda: drive("bfs", graph, cfg_mega,
                                         {"source": source}),
                           reps=3, warmup=1)
     b3_timed_by = "profiler device time"
-    if b3_ms <= 0:
-        b3_ms, b3_timed_by = b3_event_ms, "cuda events"
     held_t = {}
     plain_dev_ms, plain_rows = device_profile(
         lambda: held_t.update(out=drain(graph, cfg_mega_plain, source)))
@@ -1715,7 +2176,10 @@ def main() -> int:
         raise AssertionError(f"the plain fused drain at full size differs "
                              f"from the drain kernel: {info_t} vs "
                              f"{mega['info']}")
-    plain_ms = plain_dev_ms if plain_dev_ms is not None else 1e3 * secs_t
+    if plain_dev_ms is None:
+        raise AssertionError("the profiler saw no device time of the plain "
+                             "fused drain")
+    plain_ms = plain_dev_ms
     pushed = scalars(mega["carry"])[1]
     processed_m = int(mega["stats"].items_processed)
     bound_bytes["bfs_drain"] = (8 * mega["units"] + 12 * processed_m
@@ -1731,7 +2195,8 @@ def main() -> int:
         f"rounds, {1e3 * b3_ms / rounds:.2f} us/round (drain under the "
         f"profiler: {held['secs']} s wall, {mega_dev_ms} ms device, busy "
         f"share {None if mega_dev_ms is None else mega_dev_ms / (1e3 * held['secs'])}"
-        f"; between events around the kernel drain {b3_event_ms:.3f} ms); "
+        f"; between events around the whole drive, setup included, "
+        f"{b3_event_ms:.3f} ms); "
         f"{mega['units']} units expanded, {processed_m} popped, {pushed} "
         f"pushed: bound {1e3 * bound_bytes['bfs_drain'] / HBM_BYTES_PER_S:.3f}"
         f" ms  [{card}]")
@@ -1863,7 +2328,82 @@ def main() -> int:
             "drain_bound_ms": path["drain_bound_ms"],
             "rounds": path["info"]["rounds"],
             "shape": f"rmat({args.scale}) drain, W={cfg.wavefront}, g1"})
-    for kern in kernels[:3] + kernels[-3:-2]:
+    wb, wp, wc = wide["bfs"], wide["pagerank"], wide["coloring"]
+    small_scale = min(args.scale, 14)
+    per_item = wb["small per_item g4"]
+    pi = wb["per_item_rmat_g1"]
+    cut = pi["cut"]
+    kernels += [
+        {"name": "bfs_drain.g4", "route": "cuda",
+         "source": "src/repro_torch/csrc/bfs_drain.cu",
+         "replaces": "src/repro/kernels/drain_loop/kernel.py:82",
+         "launches": wb["rmat"]["counts"]["bfs_drain"],
+         "bit_equal": wb["plain"]["max_abs_err"] == 0,
+         "max_abs_err": wb["plain"]["max_abs_err"],
+         "tolerance": "bitwise against the plain fused drain, the "
+                      "persistent g4 cell and scipy",
+         "ms": wb["timing"]["kernel_ms"], "plain_ms": wb["plain"]["device_ms"],
+         "bound_ms": 1e3 * wb["bound_bytes"] / HBM_BYTES_PER_S,
+         "bound_by": "bytes", "library_ms": None,
+         "timed_by": wb["timing"]["timed_by"],
+         "busy_share": wb["timing"]["busy_share"],
+         "rounds": wb["rmat"]["carry"][3], "units_expanded":
+         wb["rmat"]["units"],
+         "shape": f"rmat({args.scale}) BFS drain, merge path, W=4096, g4"},
+        {"name": "bfs_drain.per_item", "route": "cuda",
+         "source": "src/repro_torch/csrc/bfs_drain.cu",
+         "replaces": "src/repro/kernels/drain_loop/kernel.py:82",
+         "launches": pi["counts"]["bfs_drain"],
+         "bit_equal": cut["max_abs_err"] == 0,
+         "max_abs_err": cut["max_abs_err"],
+         "tolerance": "bitwise against the plain fused drain and the "
+                      "persistent per_item cell over these rounds, scipy "
+                      "over the whole drain",
+         "ms": cut["kernel_ms"], "plain_ms": cut["plain_ms"],
+         "bound_ms": 1e3 * cut["bound_bytes"] / HBM_BYTES_PER_S,
+         "bound_by": "bytes", "library_ms": None,
+         "timed_by": cut["timed_by"],
+         "timed_over": f"the first {cut['rounds']} rounds of the "
+                       f"rmat({args.scale}) per_item g1 drain",
+         "drain_ms": pi["timing"]["kernel_ms"],
+         "drain_bound_ms": 1e3 * pi["bound_bytes"] / HBM_BYTES_PER_S,
+         "busy_share": pi["timing"]["busy_share"],
+         "rounds": pi["carry"][3], "units_expanded": cut["units"],
+         "small_g4": {"shape": f"rmat({small_scale}) per_item g4, W=1024",
+                      "ms": per_item["kernel_ms"],
+                      "plain_ms": per_item["plain_ms"],
+                      "max_abs_err": per_item["max_abs_err"]},
+         "shape": f"rmat({args.scale}) BFS drain, per_item, W=4096, g1"}]
+    for name, path, source_file in (
+            ("pagerank_drain.g4", wp,
+             "src/repro_torch/csrc/pagerank_drain.cu"),
+            ("coloring_drain.g4", wc,
+             "src/repro_torch/csrc/coloring_drain.cu")):
+        first = path["first_rounds"]
+        main_cell = path["rmat"] if name.startswith("pagerank") else path
+        kernels.append({
+            "name": name, "route": "cuda", "source": source_file,
+            "replaces": "src/repro/kernels/drain_loop/kernel.py:82",
+            "launches": main_cell["counts"][name.split(".")[0]],
+            "bit_equal": first["bit_equal"],
+            "max_abs_err": first["max_abs_err"],
+            "tolerance": f"bitwise against {first['held_against']} over "
+                         f"these rounds, and against the persistent g4 "
+                         f"cell over its first rounds",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": path["first_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "timed_by": first["timed_by"],
+            "event_ms": first["event_ms"],
+            "timed_over": f"the first {FIRST_ROUNDS} rounds of the "
+                          f"rmat({args.scale}) g4 drain",
+            "drain_ms": main_cell["timing"]["kernel_ms"],
+            "drain_bound_ms": 1e3 * main_cell["bound_bytes"]
+            / HBM_BYTES_PER_S,
+            "busy_share": main_cell["timing"]["busy_share"],
+            "rounds": main_cell["info"]["rounds"],
+            "shape": f"rmat({args.scale}) drain, W=4096, g4"})
+    timed_alone = ("lbs", "compact", "csr_stream", "ordered_scatter_add")
+    for kern in (k for k in kernels if k["name"] in timed_alone):
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
             f"{kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
             f"bound {kern['bound_ms']:.4f}; between events {kern['event_ms']:.4f}, "
@@ -1896,6 +2436,7 @@ def main() -> int:
         "lm": lm,
         "pagerank": pr,
         "coloring": col,
+        "wide": wide,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

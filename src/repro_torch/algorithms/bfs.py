@@ -23,7 +23,8 @@ from ..core import (ChunkCodec, SchedulerConfig, WorkCounter, adjacency_of,
 from ..graph.csr import CSRGraph
 from ..runtime.program import AtosProgram, ProgramContext
 from ..runtime.programs import reject_unknown_params
-from .common import chunking_for, default_work_budget, max_degree_of
+from .common import (chunking_for, default_work_budget,
+                     max_chunk_degree_of, max_degree_of)
 
 INF = 0x7FFFFFFF
 
@@ -180,6 +181,13 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                                  max_degree=max_degree)
     codec, threshold = chunking_for(
         cfg, budget if strategy == "merge_path" else None)
+    per_item = strategy == "per_item"
+    # per_item's most units of one chunk, for the drain kernel's int32
+    # check: read once, here (at G = 1 it is the max degree)
+    chunk_units = None
+    if per_item:
+        chunk_units = (max_degree if codec.granularity == 1
+                       else max_chunk_degree_of(graph, codec.granularity))
 
     def make_body(body_graph: CSRGraph, ctx: ProgramContext):
         return make_wavefront_fn(body_graph, strategy, budget, max_degree,
@@ -188,17 +196,17 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
-        # the B3 kernel covers the merge-path body at G = 1; wider chunks
-        # and per_item come with ROADMAP A8b
-        if strategy != "merge_path" or ctx.granularity != 1:
-            return None
         from ..kernels.drain_loop.bfs_drain import bfs_drain_cuda  # lazy
 
         def run(carry, limit=None):
             return bfs_drain_cuda(carry, body_graph.row_ptr,
                                   body_graph.col_idx,
                                   wavefront=ctx.wavefront, budget=budget,
-                                  max_rounds=max_rounds, limit=limit)
+                                  max_rounds=max_rounds, limit=limit,
+                                  granularity=codec.granularity,
+                                  split_threshold=threshold,
+                                  per_item=per_item,
+                                  max_chunk_degree=chunk_units)
 
         return run
 

@@ -247,8 +247,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     """Speculative greedy coloring as one :class:`AtosProgram`.
 
     Takes no ``params``: the streaming rule ``dirty`` comes with its
-    streaming hook, ROADMAP A9.  At granularity 1 the megakernel cell runs
-    the drain kernel B3-col (``kernels/drain_loop/coloring_drain``).
+    streaming hook, ROADMAP A9.  The megakernel cell runs the drain kernel
+    B3-col (``kernels/drain_loop/coloring_drain``) at every granularity.
     """
     if "dirty" in params:
         raise NotImplementedError(
@@ -268,9 +268,6 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
-        # B3-col covers granularity 1; wider chunks come with ROADMAP A8b
-        if ctx.granularity != 1:
-            return None
         from ..kernels.drain_loop.coloring_drain import (  # lazy
             coloring_drain_cuda)
 
@@ -279,7 +276,9 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                                        body_graph.col_idx,
                                        wavefront=ctx.wavefront,
                                        max_degree=max_degree,
-                                       max_rounds=max_rounds, limit=limit)
+                                       max_rounds=max_rounds, limit=limit,
+                                       granularity=codec.granularity,
+                                       split_threshold=threshold)
 
         return run
 

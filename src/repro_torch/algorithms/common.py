@@ -20,6 +20,18 @@ def max_degree_of(graph: CSRGraph) -> int:
     return int(graph.degrees().max())
 
 
+def max_chunk_degree_of(graph: CSRGraph, granularity: int) -> int:
+    """The largest degree sum of ``granularity`` consecutive rows (a chunk's
+    most units; one host read)."""
+    rp = graph.row_ptr
+    n = graph.num_vertices
+    if n == 0:
+        return 0
+    ends = torch.clamp(torch.arange(n, device=rp.device) + granularity,
+                       max=n)
+    return int((rp[ends] - rp[:-1]).max())
+
+
 def mean_degree_f32(graph: CSRGraph) -> float:
     """The reference's ``float(jnp.mean(degrees))``: a float32 mean.
 

@@ -247,8 +247,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     ``params``: ``damping``, ``eps``, ``check_size``, ``work_budget``,
     ``seed_count``.  ``empty_means_done=False``: the rotating rescan
     refills a drained queue, so only ``stop`` (max residue <= eps) ends the
-    drain.  At granularity 1 the megakernel cell runs the drain kernel B3-pr
-    (``kernels/drain_loop/pagerank_drain``).
+    drain.  The megakernel cell runs the drain kernel B3-pr
+    (``kernels/drain_loop/pagerank_drain``) at every granularity.
     """
     damping = float(params.pop("damping", 0.85))
     eps = float(params.pop("eps", 1e-6))
@@ -290,9 +290,6 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
-        # B3-pr covers granularity 1; wider chunks come with ROADMAP A8b
-        if ctx.granularity != 1:
-            return None
         from ..kernels.drain_loop.pagerank_drain import (  # lazy
             pagerank_drain_cuda)
 
@@ -300,7 +297,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
             return pagerank_drain_cuda(
                 carry, body_graph.row_ptr, body_graph.col_idx,
                 wavefront=ctx.wavefront, budget=budget, n_check=n_check,
-                damping=damping, eps=eps, max_rounds=max_rounds, limit=limit)
+                damping=damping, eps=eps, max_rounds=max_rounds, limit=limit,
+                granularity=codec.granularity, split_threshold=threshold)
 
         return run
 

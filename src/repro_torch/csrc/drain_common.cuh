@@ -21,7 +21,10 @@
 //     ranks from prefix sums (never an atomic ticket), so the ring is
 //     bit-identical to TaskQueue.push; what exceeds the free slots is
 //     dropped;
-//   * cooperative_grid: the co-resident grid of a kernel.
+//   * cooperative_grid: the co-resident grid of a kernel;
+//   * chunk tasks (core/task.py): the codec, a chunk's degree, the member
+//     row of a unit (chunk_row_of), and the in-kernel coalesce_chunks over
+//     G-aligned windows whose words are stamped with the round.
 //
 // Values that other blocks write inside the launch are read with
 // ld.global.cg (__ldcg), past the SM's incoherent L1.
@@ -232,6 +235,115 @@ __device__ int ring_push(int* buf, int cap, int tail, int free_slots,
     offset = wrap_add(offset, tile_total);
   }
   return count;
+}
+
+// ---------------------------------------------------------------- chunks
+// A task is a chunk of `width` consecutive CSR rows from `head`, packed as
+// (head << bits) | (width - 1) with bits = ceil(log2 G) (core/task.py).  At
+// G = 1 bits is 0 and a task is its vertex.  Not every code is a legal width
+// when G is not a power of two; the decode is the plain one all the same.
+struct Codec {
+  int G;     // the granularity, 1..64
+  int bits;  // ceil(log2 G)
+};
+
+__device__ __forceinline__ int chunk_head(int task, Codec c) {
+  return task >> c.bits;  // arithmetic, as torch's >> on int32
+}
+
+__device__ __forceinline__ int chunk_width(int task, Codec c) {
+  return (task & ((1 << c.bits) - 1)) + 1;
+}
+
+__device__ __forceinline__ int chunk_encode(int v, int width, Codec c) {
+  return static_cast<int>((static_cast<unsigned>(v) << c.bits) |
+                          (static_cast<unsigned>(width - 1) &
+                           ((1u << c.bits) - 1u)));
+}
+
+// rp[min(head + width, n)] - rp[head], both ends clamped into [0, n] as
+// core/frontier.chunk_degrees clamps them.
+__device__ __forceinline__ int chunk_degree(const int* rp, int head,
+                                            int width, int n) {
+  const int lo = clamp_to(head, 0, n);
+  const int hi = clamp_to(wrap_add(lo, width), 0, n);
+  return wrap_sub(__ldg(rp + hi), __ldg(rp + lo));
+}
+
+// The member row of the unit at offset `rank` inside the chunk [head,
+// head + width): head plus the number of j in [1, width) with
+// rp[head + j] - rp[head] <= rank -- the last such j, since rp rises -- the
+// compare-count of core/frontier.chunk_row_of, clamped into [0, n - 1].
+// A member row of degree 0 adds its j only where the next row's offset
+// does too, so it is skipped exactly as the compare-count skips it.
+__device__ __forceinline__ int chunk_row_of(const int* rp, int head, int rank,
+                                            int width, int n) {
+  const int base = __ldg(rp + head);
+  int local = 0;
+  for (int j = 1; j < width; ++j) {
+    local += wrap_sub(__ldg(rp + clamp_to(head + j, 0, n)), base) <= rank;
+  }
+  return clamp_to(head + local, 0, n > 0 ? n - 1 : 0);
+}
+
+// In-kernel core/task.coalesce_chunks.  The marked vertex ids of a round
+// are gathered per G-aligned window v / G: the count, the least and the
+// largest id.  A window whose ids are contiguous (vmax - vmin + 1 == cnt)
+// and whose degree sum rp[vmin + cnt] - rp[vmin] is at most the split
+// threshold forms one chunk of width cnt on the lane that holds vmin; its
+// other lanes push nothing; every lane of any other window pushes a
+// width-1 chunk.  The marked ids of one round are distinct in every caller
+// (a BFS neighbor kept once by the dedup, a PageRank rescan window of at
+// most n consecutive ids, coloring's disjoint chunks), so the lane of vmin
+// is the window's one lane, and it counts the window as split when it is
+// contiguous, holds more than one id and does not fit.
+//
+// The three words of a window are 64-bit, the round's stamp r (rounds + 1,
+// rising) in the high half: every update is an atomicMax, which replaces a
+// word of an older round outright, so no word is ever reset and the arrays
+// need only be zero at launch.  The count is atomicMax(r << 32) then
+// atomicAdd(1); the least id is kept as the largest ~v.  Cost: the three
+// atomics a marked lane, one grid barrier between them and the reads, and
+// 24 bytes a window.
+struct Windows {
+  unsigned long long* cnt;   // [n / G + 2] (r << 32) | count
+  unsigned long long* vmin;  // [n / G + 2] (r << 32) | ~least id
+  unsigned long long* vmax;  // [n / G + 2] (r << 32) | largest id
+  unsigned int* splits;      // [1] the windows split, summed over the drain
+  const int* rp;             // the formation row_ptr [n + 1]
+  int n;
+  int threshold;             // the split threshold; INT_MAX when none
+};
+
+__device__ __forceinline__ void window_add(const Windows& w, int v, Codec c,
+                                           unsigned r) {
+  const int b = v / c.G;
+  const unsigned long long hi = static_cast<unsigned long long>(r) << 32;
+  atomicMax(w.cnt + b, hi);
+  atomicAdd(w.cnt + b, 1ull);
+  atomicMax(w.vmin + b, hi | static_cast<unsigned>(~static_cast<unsigned>(v)));
+  atomicMax(w.vmax + b, hi | static_cast<unsigned>(v));
+}
+
+// The task that marked vertex v pushes after the window_add of every marked
+// lane of the round (a grid barrier between), or -1 when it pushes none.
+// `count_split` adds the window to the split count: pass it on one pass
+// over the lanes only.
+__device__ __forceinline__ int window_emit(const Windows& w, int v, Codec c,
+                                           bool count_split) {
+  const int b = v / c.G;
+  const int cnt = static_cast<int>(__ldcg(w.cnt + b) & 0xffffffffull);
+  const int vmn = static_cast<int>(
+      ~static_cast<unsigned>(__ldcg(w.vmin + b) & 0xffffffffull));
+  const int vmx = static_cast<int>(__ldcg(w.vmax + b) & 0xffffffffull);
+  const bool contiguous = wrap_add(wrap_sub(vmx, vmn), 1) == cnt;
+  const int head = clamp_to(vmn, 0, w.n > 0 ? w.n - 1 : 0);
+  const int degsum = wrap_sub(
+      __ldg(w.rp + clamp_to(wrap_add(vmn, cnt), 0, w.n)), __ldg(w.rp + head));
+  const bool fits = degsum <= w.threshold;
+  if (contiguous && fits) return v == vmn ? chunk_encode(v, cnt, c) : -1;
+  if (count_split && v == vmn && contiguous && cnt > 1) atomicAdd(w.splits, 1u);
+  return chunk_encode(v, 1, c);
 }
 
 struct DeviceInfo {

@@ -8,7 +8,8 @@ queue_compact   -- B2, stable stream compaction; hot path of
                    ``core.queue.TaskQueue.push`` on the ``"cuda"`` backend
 drain_loop      -- B3, each program's whole drain in one cooperative
                    launch (``kernel="megakernel"`` on CUDA tensors; BFS,
-                   PageRank and coloring at granularity 1), their generic
+                   PageRank and coloring at every granularity, BFS by
+                   merge path or per_item), their generic
                    plain version ``fused_drain_ref``, and B4, the
                    double-buffered row-slice stream the BFS and PageRank
                    drains stage through

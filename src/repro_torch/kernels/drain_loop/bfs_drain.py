@@ -2,11 +2,12 @@
 launch, ``csrc/bfs_drain.cu``.
 
 Replaces the TPU kernel ``make_fused_drain`` / ``fused_drain_pallas`` of
-``repro/kernels/drain_loop/kernel.py`` for the BFS program at granularity
-1 with merge-path expansion.  The drain computes exactly what
-``fused_drain_ref`` over the port's BFS step computes: the queue, ``dist``,
-the WorkCounter, rounds and processed items, bit for bit.  See the note in
-the source for its structure and what bounds it.
+``repro/kernels/drain_loop/kernel.py`` for the BFS program at every
+granularity 1 <= G <= 64, with merge-path or per_item expansion.  The
+drain computes exactly what ``fused_drain_ref`` over the port's BFS step
+computes: the queue, ``dist``, the WorkCounter (splits included), rounds
+and processed items, bit for bit.  See the note in the source for its
+structure and what bounds it.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import functools
 import torch
 
 from ..build import check_launch, load
-from .launch import check_operand, launch_plan, pack_cursors, unpack_carry
+from .launch import (INT_MAX, check_operand, chunk_operands, launch_plan,
+                     pack_cursors, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -25,32 +27,40 @@ _I32 = torch.int32
 def _lib():
     lib = load("bfs_drain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bfs_drain_grid.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.bfs_drain_grid.argtypes = [i, i, ctypes.POINTER(i),
+                                   ctypes.POINTER(i)]
     lib.bfs_drain_grid.restype = i
-    lib.bfs_drain_launch.argtypes = [p, i, p, i, p, p, i, p, i, i, i, p, p,
-                                     p, p, p, p, p, i, p]
+    lib.bfs_drain_launch.argtypes = ([p, i, p, i, p, p, i, p, i, i, i, i, i,
+                                      i, i] + [p] * 9 + [i, p])
     lib.bfs_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int, wavefront: int):
+def _grid(device_index: int, wavefront: int, granularity: int):
     """``(blocks, wavefront in shared memory)`` of the launch, read once per
-    device and wavefront."""
+    device, wavefront and granularity."""
     return launch_plan(_lib().bfs_drain_grid, "bfs_drain", device_index,
-                       wavefront)
+                       wavefront, granularity)
 
 
 def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
-                   wavefront: int, budget: int, max_rounds: int, limit=None):
+                   wavefront: int, budget: int, max_rounds: int, limit=None,
+                   granularity: int = 1, split_threshold=None,
+                   per_item: bool = False, max_chunk_degree=None):
     """Drain ``carry = (queue, BFSState, rounds, processed)`` in one launch,
     ``while rounds < min(max_rounds, limit) and queue.size > 0``.
 
-    Returns the new carry; its queue buffer and ``dist`` are fresh copies
-    that the kernel updated in place, its scalars views of one int32
-    tensor.  ``limit`` (an int or a 0-dim tensor) cuts the drain at an
-    absolute round.  Launches on the current stream, allocates its scratch
-    with PyTorch and makes no host sync.
+    ``granularity`` and ``split_threshold`` are the program's chunking
+    (``algorithms.common.chunking_for``).  Merge path expands at most
+    ``budget`` units a round and re-queues a chunk past it whole;
+    ``per_item`` expands every unit, and ``max_chunk_degree`` (the largest
+    degree sum of G consecutive rows) bounds its wavefront's units for the
+    int32 range check.  Returns the new carry; its queue buffer and
+    ``dist`` are fresh copies that the kernel updated in place, its scalars
+    views of one int32 tensor.  ``limit`` (an int or a 0-dim tensor) cuts
+    the drain at an absolute round.  Launches on the current stream,
+    allocates its scratch with PyTorch and makes no host sync.
     """
     queue, state, _, _ = carry
     device = row_ptr.device
@@ -65,29 +75,45 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
         raise ValueError(f"wavefront {wavefront}, budget {budget}, capacity "
                          f"{cap} and max_rounds {max_rounds} must be "
                          f"positive")
-    if m + budget >= 2 ** 31 or budget + wavefront >= 2 ** 31:
-        raise ValueError("the graph and budget exceed the kernel's int32 "
-                         "range")
-    grid, wave_in_shared = _grid(device.index, wavefront)
+    codec = chunk_operands("bfs_drain_cuda", n, granularity,
+                           split_threshold)
+    if per_item:
+        # no truncation: a round's units are bounded by W chunks of the
+        # largest degree sum.  The rows of a round need not be distinct (a
+        # carry may hold a vertex twice), so the sum of the W G largest
+        # degrees would not bound them.
+        if max_chunk_degree is None:
+            raise ValueError("per_item needs max_chunk_degree")
+        units_bound = wavefront * max(int(max_chunk_degree), 1)
+        budget, stored = INT_MAX, 0
+    else:
+        units_bound, stored = budget, budget
+    if m + units_bound >= 2 ** 31 or units_bound + wavefront >= 2 ** 31:
+        raise ValueError("the graph and the round's units exceed the "
+                         "kernel's int32 range")
+    grid, wave_in_shared = _grid(device.index, wavefront, granularity)
     cursors = pack_cursors(carry, limit, max_rounds, device)
     buf = queue.buf.clone()
     dist = state.dist.clone()
-    # scratch: unit nbr and candidate, then the block counts and the two
-    # barrier words (zeroed), then the wavefront copies when they do not
-    # fit in shared memory
-    units = torch.empty(2 * budget, dtype=_I32, device=device)
-    small = torch.zeros(grid + 2, dtype=_I32, device=device)
+    # scratch: the units' nbr (merge path), the dedup and least-cand words
+    # (all ones), the windows, then the split count, the block counts and
+    # the two barrier words (zeroed), then the wavefront copies when they do
+    # not fit in shared memory
+    unit_nbr = torch.empty(max(stored, 1), dtype=_I32, device=device)
+    words = torch.full((2 * n,), -1, dtype=torch.int64, device=device)
+    windows = window_words(n, granularity, device)
+    small = torch.zeros(grid + 3, dtype=_I32, device=device)
     wave = (None if wave_in_shared else
             torch.empty(grid * 2 * wavefront, dtype=_I32, device=device))
-    first_unit = torch.full((n,), -1, dtype=torch.int64, device=device)
     units_expanded = torch.zeros((), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = _lib().bfs_drain_launch(
             buf.data_ptr(), cap, dist.data_ptr(), n, row_ptr.data_ptr(),
             col_idx.data_ptr(), m, cursors.data_ptr(), wavefront, budget,
-            max_rounds, units.data_ptr(), units[budget:].data_ptr(),
-            first_unit.data_ptr(), small.data_ptr(),
-            small[grid:].data_ptr(),
+            stored, max_rounds, *codec, unit_nbr.data_ptr(),
+            words.data_ptr(), words[n:].data_ptr(), windows.data_ptr(),
+            small[grid + 2:].data_ptr(), small.data_ptr(),
+            small[grid:grid + 2].data_ptr(),
             None if wave is None else wave.data_ptr(),
             units_expanded.data_ptr(), grid,
             torch.cuda.current_stream().cuda_stream)

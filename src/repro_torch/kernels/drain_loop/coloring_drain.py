@@ -2,11 +2,12 @@
 cooperative launch, ``csrc/coloring_drain.cu``.
 
 Replaces the TPU kernel ``make_fused_drain`` / ``fused_drain_pallas`` of
-``repro/kernels/drain_loop/kernel.py`` for the coloring program at
-granularity 1.  The drain computes exactly what ``fused_drain_ref`` over
-the port's fused assign/detect step computes: the queue, ``colors``, the
-WorkCounter, rounds and processed items, bit for bit.  See the note in the
-source for its structure and what bounds it.
+``repro/kernels/drain_loop/kernel.py`` for the coloring program at every
+granularity 1 <= G <= 64.  The drain computes exactly what
+``fused_drain_ref`` over the port's fused assign/detect step computes: the
+queue, ``colors``, the WorkCounter (splits included), rounds and processed
+items, bit for bit.  See the note in the source for its structure and
+what bounds it.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import functools
 import torch
 
 from ..build import check_launch, load
-from .launch import check_operand, launch_plan, pack_cursors, unpack_carry
+from .launch import (check_operand, chunk_operands, launch_plan,
+                     pack_cursors, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -25,30 +27,34 @@ _I32 = torch.int32
 def _lib():
     lib = load("coloring_drain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.coloring_drain_grid.argtypes = [i, i, ctypes.POINTER(i),
+    lib.coloring_drain_grid.argtypes = [i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
     lib.coloring_drain_grid.restype = i
-    lib.coloring_drain_launch.argtypes = [p, i, p, i, p, p, p, i, i, i, p, p,
-                                          p, p, p, p, i, p]
+    lib.coloring_drain_launch.argtypes = ([p, i, p, i, p, p, p, i, i, i, i,
+                                           i, i] + [p] * 8 + [i, p])
     lib.coloring_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int, wavefront: int, max_degree: int):
+def _grid(device_index: int, wavefront: int, granularity: int,
+          max_degree: int):
     """``(blocks, wavefront in shared memory)`` of the launch."""
     return launch_plan(_lib().coloring_drain_grid, "coloring_drain",
-                       device_index, wavefront, max_degree)
+                       device_index, wavefront, granularity, max_degree)
 
 
 def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                         *, wavefront: int, max_degree: int, max_rounds: int,
-                        limit=None):
+                        limit=None, granularity: int = 1,
+                        split_threshold=None):
     """Drain ``carry = (queue, ColorState, rounds, processed)`` in one
     launch, ``while rounds < min(max_rounds, limit) and queue.size > 0``.
 
     ``max_degree`` (the graph's, read once when the program is built)
-    sizes the block bitset in shared memory.  Returns the new carry; its
+    sizes the block bitset in shared memory; ``granularity`` and
+    ``split_threshold`` are the program's chunking
+    (``algorithms.common.chunking_for``).  Returns the new carry; its
     queue buffer and ``colors`` are fresh copies that the kernel updated in
     place, its scalars views of one int32 tensor.  Launches on the current
     stream, allocates its scratch with PyTorch and makes no host sync.
@@ -66,28 +72,36 @@ def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
         raise ValueError(f"wavefront {wavefront}, capacity {cap}, max_rounds "
                          f"{max_rounds} and max_degree {max_degree} must be "
                          f"positive")
-    if 2 * wavefront >= 2 ** 31 or col_idx.shape[0] >= 2 ** 31:
+    codec = chunk_operands("coloring_drain_cuda", n, granularity,
+                           split_threshold)
+    if wavefront * (1 + granularity) >= 2 ** 31 \
+            or col_idx.shape[0] >= 2 ** 31:
         raise ValueError("the graph or wavefront exceeds the kernel's int32 "
                          "range")
-    grid, wave_in_shared = _grid(device.index, wavefront, max_degree)
+    grid, wave_in_shared = _grid(device.index, wavefront, granularity,
+                                 max_degree)
 
     cursors = pack_cursors(carry, limit, max_rounds, device)
     buf = queue.buf.clone()
     colors = state.colors.clone()
-    # scratch: pick and bad per lane, then the block counts and the two
-    # barrier words (zeroed), then the wavefront copies when they do not
-    # fit in shared memory
-    lanes = torch.empty(2 * wavefront, dtype=_I32, device=device)
-    small = torch.zeros(grid + 2, dtype=_I32, device=device)
+    # scratch: pick and bad per vertex lane, the windows, then the block
+    # counts, the two barrier words and the split count (zeroed), then the
+    # wavefront copies when they do not fit in shared memory
+    flat = wavefront * granularity
+    lanes = torch.empty(2 * flat, dtype=_I32, device=device)
+    windows = window_words(n, granularity, device)
+    small = torch.zeros(grid + 3, dtype=_I32, device=device)
     wave = (None if wave_in_shared else
-            torch.empty(grid * 2 * wavefront, dtype=_I32, device=device))
+            torch.empty(grid * (wavefront + flat), dtype=_I32,
+                        device=device))
     visits = torch.zeros((), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = _lib().coloring_drain_launch(
             buf.data_ptr(), cap, colors.data_ptr(), n, row_ptr.data_ptr(),
             col_idx.data_ptr(), cursors.data_ptr(), wavefront, max_rounds,
-            max_degree, lanes.data_ptr(), lanes[wavefront:].data_ptr(),
-            small.data_ptr(), small[grid:].data_ptr(),
+            max_degree, *codec, lanes.data_ptr(), lanes[flat:].data_ptr(),
+            windows.data_ptr(), small[grid + 2:].data_ptr(),
+            small.data_ptr(), small[grid:grid + 2].data_ptr(),
             None if wave is None else wave.data_ptr(), visits.data_ptr(),
             grid, torch.cuda.current_stream().cuda_stream)
     check_launch(err, "coloring_drain")

@@ -1,7 +1,7 @@
 """What the drain kernels' wrappers share: operand checks, the launch
-plan, and the carry's scalars packed into one int32 tensor for the kernel
-and unpacked from it after (``bfs_drain``, ``pagerank_drain``,
-``coloring_drain``)."""
+plan, the chunk codec's operands and the coalescing windows, and the
+carry's scalars packed into one int32 tensor for the kernel and unpacked
+from it after (``bfs_drain``, ``pagerank_drain``, ``coloring_drain``)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,9 +10,11 @@ import dataclasses
 import torch
 
 from ...core.counters import WorkCounter
+from ...core.task import MAX_GRANULARITY
 from ..build import check_launch
 
 _I32 = torch.int32
+INT_MAX = 2 ** 31 - 1
 
 #: the carry's scalars in the order the kernels read them (csrc
 #: drain_common.cuh, enum Cursor); a program's own scalars follow
@@ -29,6 +31,30 @@ def check_operand(who: str, name: str, t: torch.Tensor, device,
                          f"got {t.device} and {device}")
     if t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+
+
+def chunk_operands(who: str, n: int, granularity: int,
+                   split_threshold) -> tuple:
+    """``(granularity, width_bits, threshold)`` for a kernel's chunk codec
+    and windows (``csrc/drain_common.cuh``), the threshold ``INT_MAX`` where
+    there is none.  Raises where a chunk code of a vertex would leave the
+    int32 range."""
+    if not 1 <= granularity <= MAX_GRANULARITY:
+        raise ValueError(f"{who}: granularity must be in [1, "
+                         f"{MAX_GRANULARITY}], got {granularity}")
+    bits = (granularity - 1).bit_length()
+    if n << bits >= 2 ** 31:
+        raise ValueError(f"{who}: {n} vertices at granularity {granularity} "
+                         f"exceed the int32 chunk codes")
+    threshold = INT_MAX if split_threshold is None else int(split_threshold)
+    return granularity, bits, min(threshold, INT_MAX)
+
+
+def window_words(n: int, granularity: int, device) -> torch.Tensor:
+    """The coalescing windows' zeroed 64-bit words: count, least and
+    largest id of each of the ``n // G + 2`` G-aligned windows."""
+    return torch.zeros(3 * (n // granularity + 2), dtype=torch.int64,
+                       device=device)
 
 
 def launch_plan(plan_fn, label: str, device_index: int, *args):

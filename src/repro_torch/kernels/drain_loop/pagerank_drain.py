@@ -2,13 +2,14 @@
 cooperative launch, ``csrc/pagerank_drain.cu``.
 
 Replaces the TPU kernel ``make_fused_drain`` / ``fused_drain_pallas`` of
-``repro/kernels/drain_loop/kernel.py`` for the PageRank program at
-granularity 1.  The drain computes exactly what ``fused_drain_ref`` over
-the port's PageRank step computes: the queue, ``rank``, ``residue``,
-``in_queue``, the rescan cursor, the WorkCounter, rounds and processed
-items, bit for bit; each target's contributions are added in unit order,
-as ``kernels/scatter_add`` adds them on the persistent path.  See the note
-in the source for its structure and what bounds it.
+``repro/kernels/drain_loop/kernel.py`` for the PageRank program at every
+granularity 1 <= G <= 64.  The drain computes exactly what
+``fused_drain_ref`` over the port's PageRank step computes: the queue,
+``rank``, ``residue``, ``in_queue``, the rescan cursor, the WorkCounter
+(splits included), rounds and processed items, bit for bit; each target's
+contributions are added in unit order, as ``kernels/scatter_add`` adds
+them on the persistent path.  See the note in the source for its
+structure and what bounds it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import functools
 import torch
 
 from ..build import check_launch, load
-from .launch import check_operand, launch_plan, pack_cursors, unpack_carry
+from .launch import (check_operand, chunk_operands, launch_plan,
+                     pack_cursors, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -27,35 +29,39 @@ _I32 = torch.int32
 def _lib():
     lib = load("pagerank_drain")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pagerank_drain_grid.argtypes = [i, ctypes.POINTER(i),
+    lib.pagerank_drain_grid.argtypes = [i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
     lib.pagerank_drain_grid.restype = i
     lib.pagerank_drain_launch.argtypes = (
-        [p, i, p, p, p, i, p, p, i, p, i, i, i, f, f, i]
-        + [p] * 16 + [i, p])
+        [p, i, p, p, p, i, p, p, i, p, i, i, i, f, f, i, i, i, i]
+        + [p] * 19 + [i, p])
     lib.pagerank_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int, wavefront: int):
-    """``(blocks, wavefront in shared memory)`` of the launch."""
+def _grid(device_index: int, wavefront: int, granularity: int):
+    """``(blocks, wavefront in shared memory)`` of the launch, read once per
+    device, wavefront and granularity."""
     return launch_plan(_lib().pagerank_drain_grid, "pagerank_drain",
-                       device_index, wavefront)
+                       device_index, wavefront, granularity)
 
 
 def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                         *, wavefront: int, budget: int, n_check: int,
                         damping: float, eps: float, max_rounds: int,
-                        limit=None):
+                        limit=None, granularity: int = 1,
+                        split_threshold=None):
     """Drain ``carry = (queue, PRState, rounds, processed)`` in one launch,
     ``while rounds < min(max_rounds, limit) and max(residue) > eps``.
 
     Returns the new carry; its queue buffer, ``rank``, ``residue`` and
     ``in_queue`` are fresh copies that the kernel updated in place, its
     scalars views of one int32 tensor.  ``limit`` (an int or a 0-dim
-    tensor) cuts the drain at an absolute round.  Launches on the current
-    stream, allocates its scratch with PyTorch and makes no host sync.
+    tensor) cuts the drain at an absolute round.  ``granularity`` and
+    ``split_threshold`` are the program's chunking
+    (``algorithms.common.chunking_for``).  Launches on the current stream,
+    allocates its scratch with PyTorch and makes no host sync.
     """
     queue, state, _, _ = carry
     device = row_ptr.device
@@ -78,7 +84,9 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     if m + budget >= 2 ** 31 or n_check + wavefront >= 2 ** 31:
         raise ValueError("the graph and budget exceed the kernel's int32 "
                          "range")
-    grid, wave_in_shared = _grid(device.index, wavefront)
+    codec = chunk_operands("pagerank_drain_cuda", n, granularity,
+                           split_threshold)
+    grid, wave_in_shared = _grid(device.index, wavefront, granularity)
 
     cursors = pack_cursors(carry, limit, max_rounds, device,
                            state.check_cursor)
@@ -87,15 +95,18 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     residue = state.residue.clone()
     in_queue = state.in_queue.clone()
     # scratch: the unit arrays, the per-target segment words (counts
-    # zeroed), the dedup words (all ones), then the small arrays
+    # zeroed), the rows' truncation rounds (zeroed), the dedup words (all
+    # ones), the windows, then the small arrays
     i32 = functools.partial(torch.empty, dtype=_I32, device=device)
     units5 = i32(5 * budget)
     unit_contrib = units5[budget:2 * budget].view(torch.float32)
     ordered = units5[4 * budget:].view(torch.float32)
-    seg_words = torch.zeros(2 * n, dtype=_I32, device=device)
+    seg_words = torch.zeros(3 * n, dtype=_I32, device=device)
     first_lane = torch.full((n,), -1, dtype=torch.int64, device=device)
-    lane_res = torch.empty(wavefront, dtype=torch.float32, device=device)
-    small = torch.zeros(2 * grid + 3, dtype=_I32, device=device)
+    lane_res = torch.empty(wavefront * granularity, dtype=torch.float32,
+                           device=device)
+    windows = window_words(n, granularity, device)
+    small = torch.zeros(2 * grid + 4, dtype=_I32, device=device)
     scan_keep = i32(n_check)
     wave = (None if wave_in_shared else i32(grid * 2 * wavefront))
     units = torch.zeros((), dtype=torch.int64, device=device)
@@ -104,12 +115,14 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             buf.data_ptr(), cap, rank.data_ptr(), residue.data_ptr(),
             in_queue.data_ptr(), n, row_ptr.data_ptr(), col_idx.data_ptr(),
             m, cursors.data_ptr(), wavefront, budget, n_check,
-            float(damping), float(eps), max_rounds, first_lane.data_ptr(),
-            lane_res.data_ptr(), units5.data_ptr(), unit_contrib.data_ptr(),
-            units5[2 * budget:].data_ptr(), units5[3 * budget:].data_ptr(),
-            ordered.data_ptr(), seg_words.data_ptr(),
-            seg_words[n:].data_ptr(),
+            float(damping), float(eps), max_rounds, *codec,
+            first_lane.data_ptr(), lane_res.data_ptr(), units5.data_ptr(),
+            unit_contrib.data_ptr(), units5[2 * budget:].data_ptr(),
+            units5[3 * budget:].data_ptr(), ordered.data_ptr(),
+            seg_words.data_ptr(), seg_words[n:].data_ptr(),
             small[2 * grid + 2:].data_ptr(), scan_keep.data_ptr(),
+            seg_words[2 * n:].data_ptr(),
+            windows.data_ptr(), small[2 * grid + 3:].data_ptr(),
             small.data_ptr(), small[grid:2 * grid].data_ptr(),
             small[2 * grid:2 * grid + 2].data_ptr(),
             None if wave is None else wave.data_ptr(), units.data_ptr(),

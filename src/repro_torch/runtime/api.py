@@ -9,8 +9,8 @@ normalized to ``(state, RunStats, info)`` as in the reference.
 A megakernel cell runs, as in the reference, a body that expands through
 the row-slice stream (``core/backend.STREAM``) and queue ops on the plain
 backend.  On CUDA tensors with backend ``auto`` or ``cuda`` the whole drain
-is one launch of the program's CUDA drain kernel; a program or
-configuration without one raises, and never falls back.  On CPU tensors,
+is one launch of the program's CUDA drain kernel, at every granularity; a
+program without one raises, and never falls back.  On CPU tensors,
 or with backend ``torch``, it is the plain fused drain over the same step.
 """
 from __future__ import annotations
@@ -33,15 +33,6 @@ _LATER_SLICES = {
     "sharded": "the sharded topology comes with ROADMAP A12",
 }
 
-#: the ROADMAP item that brings a CUDA drain kernel where the program (or
-#: its configuration) has none yet
-_DRAIN_KERNEL_ITEMS = {
-    "bfs": "BFS at granularity > 1 or with per_item expansion comes with "
-           "ROADMAP A8b",
-    "pagerank": "PageRank at granularity > 1 comes with ROADMAP A8b",
-    "coloring": "coloring at granularity > 1 comes with ROADMAP A8b",
-}
-_OTHER_DRAIN_KERNELS = "each program needs a drain kernel of its own"
 
 
 class ExecutionResult(NamedTuple):
@@ -86,16 +77,14 @@ def drain_kernel_for(program: AtosProgram, graph,
     """The runner ``kernel(carry, limit)`` of a megakernel cell: the
     program's CUDA drain kernel when the backend resolves to ``"cuda"``,
     None (the plain fused drain) when it resolves to ``"torch"``.  Raises
-    ``NotImplementedError`` naming the ROADMAP item where the program has
-    no kernel for this configuration."""
+    ``NotImplementedError`` where the program has no drain kernel."""
     if resolve_backend(cfg.backend, graph.row_ptr) == "torch":
         return None
     kernel = program.drain_kernel(graph, _context(cfg), cfg.max_rounds)
     if kernel is None:
-        item = _DRAIN_KERNEL_ITEMS.get(program.name, _OTHER_DRAIN_KERNELS)
         raise NotImplementedError(
-            f"{program.name} under {policy_of(cfg)} has no CUDA drain kernel "
-            f"yet: {item}")
+            f"{program.name} under {policy_of(cfg)} has no CUDA drain kernel: "
+            f"each program needs a drain kernel of its own")
     return kernel
 
 

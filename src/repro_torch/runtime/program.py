@@ -53,7 +53,7 @@ class AtosProgram:
     default_queue_capacity: int = 1024
     #: ``(graph, ctx, max_rounds) -> runner(carry, limit)``: the program's
     #: hand-written drain kernel for ``kernel="megakernel"`` on CUDA
-    #: tensors, or None where this program or configuration has none.  The
+    #: tensors, or None where this program has none.  The
     #: runner drains while ``rounds < min(max_rounds, limit)`` and the
     #: body's ``cond`` holds, bit-identical to the plain fused drain.
     make_drain_kernel: Optional[Callable] = None

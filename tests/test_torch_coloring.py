@@ -6,8 +6,13 @@ queue after ``init``; the fused body on hand-made wavefronts at granularity
 1 and 4; ``execute`` under ``single.persistent``, ``single.discrete`` and
 ``single.megakernel`` (the plain fused drain on CPU tensors) against JAX's
 ``single.persistent`` and ``single.megakernel`` cells; a ``max_rounds``
-cut, segmented drains and a JAX drain handed across mid-way;
-``coloring_bsp``; and ``validate_coloring`` on every result.
+cut, segmented drains and a JAX drain handed across mid-way; beyond
+granularity 1 (G = 2, 3, 8; windows that split) the megakernel drain's
+final queue against JAX's persistent cell and its state against JAX's
+megakernel cell, and the body at G = 3 on a hand-made wavefront (a
+zero-degree member row, the partial window of vertex n - 1, an assign and a
+detect with one head); ``coloring_bsp``; and ``validate_coloring`` on every
+result.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +24,15 @@ import repro_torch.graph as tg
 from repro.algorithms import coloring as jcol
 from repro.core import ChunkCodec as JCodec
 from repro.core import SchedulerConfig as JConfig
+from repro.core.scheduler import persistent_drive as j_persistent_drive
 from repro.runtime import build_program as j_build
 from repro.runtime import config_for as j_config_for
 from repro.runtime import execute as j_execute
 from repro.runtime import parse_policy as j_parse
 from repro.runtime.api import _shared_setup as j_setup
 from repro_torch.algorithms import coloring as tcol
-from repro_torch.convert import coloring_state_from_numpy, queue_from_numpy
+from repro_torch.convert import (coloring_state_from_numpy, graph_from_numpy,
+                                 queue_from_numpy)
 from repro_torch.core import (ChunkCodec, SchedulerConfig, chunk_degrees,
                               megakernel_drive, megakernel_segment)
 from repro_torch.runtime import build_program, config_for, parse_policy
@@ -227,6 +234,108 @@ def test_megakernel_bit_identical_to_jax_megakernel(graphs, graph, g):
                             "single.megakernel" + _suffix(g))
     assert info["launches"] == 1
     assert tcol.validate_coloring(graphs[graph][1], state.colors)
+
+
+# ------------- the megakernel beyond granularity 1, final queue included
+WIDE = [(2, {}), (3, {}), (8, {}), (3, {"split_threshold": 6}),
+        (8, {"split_threshold": 6})]
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("g,fields", WIDE)
+def test_wide_megakernel_drain_matches_jax_with_its_queue(graphs, graph, g,
+                                                          fields):
+    """The port's single.megakernel.g<G> plain fused drain against JAX's
+    single.persistent.g<G> set up by hand (colors, counters with splits,
+    rounds, processed and the final queue, bitwise), and through execute
+    against JAX's single.megakernel.g<G>."""
+    jgraph, tgraph = graphs[graph]
+    policy = "single.megakernel" + _suffix(g)
+    jpolicy = j_parse("single.persistent" + _suffix(g))
+    jcfg, tcfg = _configs(policy, "single.persistent" + _suffix(g),
+                          **fields)
+    jq, js, _, jstep, jcond, _ = j_setup(j_build("coloring", jgraph, jcfg),
+                                         jgraph, jcfg, jpolicy, None)
+    jcarry = j_persistent_drive(jstep, jcond,
+                                (jq, js, jnp.int32(0), jnp.int32(0)))
+    setup = drain_setup(build_program("coloring", tgraph, tcfg), tgraph,
+                        tcfg)
+    assert setup.kernel is None             # CPU tensors: the plain drain
+    tcarry = megakernel_drive(setup.step, setup.cond, setup.carry)
+    for field in ("buf", "head", "tail", "dropped"):
+        np.testing.assert_array_equal(getattr(tcarry[0], field).numpy(),
+                                      np.asarray(getattr(jcarry[0], field)),
+                                      err_msg=field)
+    _assert_state(tcarry[1], jcarry[1])
+    assert [int(x) for x in tcarry[2:]] == [int(x) for x in jcarry[2:]]
+    assert tcol.validate_coloring(tgraph, tcarry[1].colors)
+    if fields and graph == "rmat(8,8,1)":
+        assert int(tcarry[1].counter.splits) > 0
+    info, _ = _run_both(graphs, graph, policy, policy, **fields)
+    assert info["launches"] == 1
+
+
+@pytest.fixture(scope="module")
+def tape_graph():
+    """rmat(8,8,1) with its ids reversed, so that vertex n - 1 is a hub and
+    its window is busy; rows of degree 0 stay."""
+    jgraph = jg.rmat(8, 8, seed=1)
+    n = jgraph.num_vertices
+    jgraph = jg.permute_vertices(jgraph, np.arange(n)[::-1].copy())
+    return jgraph, graph_from_numpy(np.asarray(jgraph.row_ptr),
+                                    np.asarray(jgraph.col_idx), device="cpu")
+
+
+@pytest.mark.parametrize("threshold", [None, 6])
+def test_fused_body_matches_jax_on_a_g3_tape(tape_graph, threshold):
+    """The fused body at G = 3: an assign chunk with a zero-degree member
+    row, an assign and a detect chunk with one head, and detect chunks
+    over the partial window of n - 1 and others, on a state of mostly one
+    color, where most detects clash."""
+    jgraph, tgraph = tape_graph
+    g = 3
+    n = jgraph.num_vertices
+    deg = np.asarray(jgraph.degrees())
+    zero = int(np.flatnonzero(deg[1:n - 4] == 0)[0]) + 1
+    rng = np.random.default_rng(4)
+    # runs that share no vertex except the detect beside the assign at 100
+    # (the high ids are the hubs, where detects clash most)
+    starts = [s for s in range(n - 90, n - 8, 6) if abs(s - zero) > 8
+              and abs(s - 100) > 8][:14]
+    heads = [zero - 1, 100, 100, n - 2] + starts
+    widths = [3, 3, 3, 2] + list(rng.integers(1, g + 1, size=len(starts)))
+    sign = [1, 1, -1, -1] + list(np.where(rng.random(len(starts)) < 0.5,
+                                          1, -1))
+    codes = np.asarray(JCodec(g).encode(jnp.asarray(heads, jnp.int32),
+                                        jnp.asarray(widths, jnp.int32)))
+    items = (np.asarray(sign, np.int32) * (codes + 1)).astype(np.int32)
+    valid = np.ones(items.shape[0], bool)
+    valid[-2:] = False
+    items[~valid] = np.int32(-2 ** 31)
+    colors = np.where(rng.random(n) < 0.9, 0, 1).astype(np.int32)
+    k = items.shape[0]
+    jf = jcol.make_wavefront_fn(jgraph, codec=JCodec(g),
+                                split_threshold=threshold)
+    tf = tcol.make_wavefront_fn(tgraph, tcol.flat_budget(tgraph, k * g),
+                                codec=ChunkCodec(g), backend="torch",
+                                split_threshold=threshold)
+    jstate = jcol.ColorState(colors=jnp.asarray(colors),
+                             counter=jcol.WorkCounter.zero())
+    tstate = coloring_state_from_numpy(colors, 0, 0, 0, device="cpu")
+    jout = jf(jnp.asarray(items), jnp.asarray(valid), jstate)
+    tout = tf(torch.from_numpy(items), torch.from_numpy(valid), tstate)
+    for got, want in zip(tout[:2], jout[:2]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _assert_state(tout[2], jout[2])
+    out, mask = tout[0].numpy(), tout[1].numpy()
+    reassigned = out[k:][mask[k:]] - 1
+    # the re-assign chunks include the window of n - 1, and a wide chunk
+    # where no threshold splits it
+    assert ((reassigned >> 2) + (reassigned & 3) >= n - 1).any()
+    if threshold is None:
+        assert ((reassigned & 3) > 0).any()
+    else:                                   # the hubs' windows split
+        assert int(tout[2].counter.splits) > 0
 
 
 @pytest.mark.parametrize("kernel", ["persistent", "megakernel"])

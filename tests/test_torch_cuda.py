@@ -2,7 +2,9 @@
 version at the main path's shapes and edge sizes, BFS through both kernels
 against the plain backend, the ordered scatter-add against the CPU's
 sequential sum and the PageRank and coloring drain kernels against their
-persistent, plain and CPU drains, bit for bit, and the flash-attention
+persistent, plain and CPU drains, bit for bit, every drain kernel at
+granularities 2, 3 and 8 (and BFS per_item) against the plain fused drain,
+and the flash-attention
 kernel B5 against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
@@ -258,27 +260,92 @@ def test_bfs_drain_segments_equal_the_whole_drain(every):
     assert int(short[2]) == 5
 
 
-@pytest.mark.parametrize("policy,params,item", [
-    ("single.megakernel.g4", {}, "A8b"),
-    ("single.megakernel", {"strategy": "per_item"}, "A8b")])
-def test_megakernel_without_a_drain_kernel_raises_on_cuda(policy, params,
-                                                          item):
+# the megakernel beyond granularity 1: (algo, G, params, config fields)
+WIDE_CASES = (
+    [(algo, g, {}, {}) for algo in ("bfs", "pagerank", "coloring")
+     for g in (2, 3, 8)]
+    + [("bfs", g, {"strategy": "per_item"}, {}) for g in (1, 4)]
+    # windows that split, and chunks past a tight budget re-queued whole
+    + [("bfs", 3, {"work_budget": 128}, {"split_threshold": 8}),
+       ("pagerank", 3, {"work_budget": 128}, {"split_threshold": 8}),
+       ("coloring", 3, {}, {"split_threshold": 8}),
+       ("bfs", 3, {"strategy": "per_item"}, {"split_threshold": 8})])
+
+
+def _launches():
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    wrappers = (bfs_drain_cuda, _drain_kernel_of("pagerank"),
+                _drain_kernel_of("coloring"), lbs_cuda, compact_cuda,
+                ordered_scatter_add_cuda)
+    return [w.launches for w in wrappers]
+
+
+@pytest.mark.parametrize("graph", ["rmat(10)", "grid2d(32)"])
+@pytest.mark.parametrize("algo,g,params,fields", WIDE_CASES)
+def test_wide_megakernel_matches_the_plain_fused_drain(graph, algo, g, params,
+                                                       fields):
+    """single.megakernel.g<G> (and BFS per_item) on CUDA tensors: one launch
+    of the program's drain kernel, no B1, B2 or scatter-add launch, and the
+    carry bitwise equal to the plain fused drain over the same step run on
+    the CPU (whose PageRank sums in update order), splits and final queue
+    included; execute reports one launch."""
     _require_cuda()
+    from repro_torch.core import megakernel_drive, no_host_sync
+    from repro_torch.graph import grid2d, rmat
+    from repro_torch.runtime import (build_program, config_for, execute,
+                                     parse_policy)
+    from repro_torch.core import SchedulerConfig
+
+    g_cuda = (rmat(10, 16, seed=2, device="cuda") if graph == "rmat(10)"
+              else grid2d(32, 32, device="cuda"))
+    policy = "single.megakernel" + ("" if g == 1 else f".g{g}")
+    if algo == "bfs":
+        params = {"source": 0, **params}
+    mega = _algo_setup(g_cuda, algo, policy, params=params, **fields)
+    assert mega.kernel is not None
+    before = _launches()
+    with no_host_sync(g_cuda.device):
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+    torch.cuda.synchronize()
+    launched = [now - was for now, was in zip(_launches(), before)]
+    which = ("bfs", "pagerank", "coloring").index(algo)
+    assert launched == [int(i == which) for i in range(6)]
+    plain = _algo_setup(g_cuda.to("cpu"), algo, policy, params=params,
+                        **fields)
+    assert plain.kernel is None
+    _assert_same(got, megakernel_drive(plain.step, plain.cond, plain.carry))
+    assert int(got[0].dropped) == 0 and int(got[2]) > 1
+    cfg = config_for(SchedulerConfig(num_workers=64, fetch_size=2, **fields),
+                     parse_policy(policy))
+    _, _, info = execute(build_program(algo, g_cuda, cfg, params=params),
+                         g_cuda, cfg)
+    assert info["launches"] == 1
+
+
+def test_megakernel_without_a_drain_kernel_raises_on_cuda():
+    """A program with no drain kernel raises under single.megakernel on
+    CUDA tensors; it never falls back to the plain fused drain."""
+    _require_cuda()
+    import dataclasses
+
     from repro_torch.core import SchedulerConfig
     from repro_torch.graph import grid2d
     from repro_torch.runtime import (build_program, config_for, execute,
                                      parse_policy)
 
     g = grid2d(8, 8, device="cuda")
-    cfg = config_for(SchedulerConfig(num_workers=8), parse_policy(policy))
-    with pytest.raises(NotImplementedError, match=item):
-        execute(build_program("bfs", g, cfg, params=params), g, cfg)
-    # PageRank and coloring have drain kernels at g1 only
-    g4 = config_for(SchedulerConfig(num_workers=8),
-                    parse_policy("single.megakernel.g4"))
-    for algo in ("pagerank", "coloring"):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            execute(build_program(algo, g, g4), g, g4)
+    cfg = config_for(SchedulerConfig(num_workers=8),
+                     parse_policy("single.megakernel.g4"))
+    program = dataclasses.replace(build_program("bfs", g, cfg),
+                                  make_drain_kernel=None)
+    with pytest.raises(NotImplementedError, match="no CUDA drain kernel"):
+        execute(program, g, cfg)
 
 
 # ------------------- the ordered scatter-add, B3-pr and B3-col (PageRank,

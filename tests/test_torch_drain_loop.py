@@ -4,7 +4,12 @@ version (B4) against numpy slicing; the streamed expansion against JAX's
 ``expand_merge_path(backend="jnp")``; the plain fused drain (B3's plain
 version) on claim/push tapes against JAX's ``fused_drain_pallas``; and
 ``execute`` under ``single.megakernel`` against JAX's ``single.persistent``
-cell, whole, cut at ``max_rounds`` and cut into segments.
+cell, whole, cut at ``max_rounds`` and cut into segments; beyond
+granularity 1 (G = 2, 3, 8; windows that split; chunks re-queued whole past
+a tight budget; per_item) the drain's final queue too; and the BFS body at
+G = 3 on a hand-made wavefront (a zero-degree member row, the partial
+window of vertex n - 1, duplicate chunk heads); and the drain kernels'
+chunk operands and their bound on a chunk's units.
 
 JAX's own megakernel cells and its ``stream_row_slices`` do not run on the
 installed JAX (ROADMAP C-ref1), so the port is held against the cells and
@@ -23,6 +28,7 @@ from repro.core import ChunkCodec as JCodec
 from repro.core import EMPTY as J_EMPTY
 from repro.core import SchedulerConfig as JConfig
 from repro.core import make_queue as j_make_queue
+from repro.core.scheduler import persistent_drive as j_persistent_drive
 from repro.core.frontier import chunk_degrees as j_chunk_degrees
 from repro.core.frontier import expand_merge_path as j_expand
 from repro.kernels.drain_loop import fused_drain_pallas
@@ -30,8 +36,12 @@ from repro.runtime import build_program as j_build
 from repro.runtime import config_for as j_config_for
 from repro.runtime import execute as j_execute
 from repro.runtime import parse_policy as j_parse
-from repro_torch.convert import graph_from_numpy
-from repro_torch.core import (EMPTY, STREAM, STREAM_TORCH, SchedulerConfig,
+from repro.runtime.api import _shared_setup as j_setup
+from repro.algorithms import bfs as jbfs
+from repro_torch.algorithms import bfs as tbfs
+from repro_torch.convert import bfs_state_from_numpy, graph_from_numpy
+from repro_torch.core import (EMPTY, STREAM, STREAM_TORCH, ChunkCodec,
+                              SchedulerConfig,
                               expand_merge_path, make_queue,
                               megakernel_drive, megakernel_segment,
                               resolve_backend)
@@ -349,3 +359,154 @@ def test_segmented_megakernel_drain_equals_the_whole(graphs, every):
         [int(x) for x in (want[0].head, want[0].tail, want[0].dropped,
                           want[1].counter.work, want[1].counter.rounds,
                           want[2], want[3])]
+
+
+# ------------- the megakernel beyond granularity 1, final queue included
+def _final_carries(jgraph, tgraph, algo, g, params, **cfg_kw):
+    """JAX's ``single.persistent.g<G>`` drain and the port's
+    ``single.megakernel.g<G>`` plain fused drain, both set up by hand so
+    that the final queue comes back; the queues, rounds and processed
+    counts are held equal here, the states by the caller."""
+    suffix = "" if g == 1 else f".g{g}"
+    base = dict(num_workers=16, fetch_size=4, **cfg_kw)
+    jpolicy = j_parse("single.persistent" + suffix)
+    jcfg = j_config_for(JConfig(**base), jpolicy)
+    jq, js, _, jstep, jcond, _ = j_setup(j_build(algo, jgraph, jcfg,
+                                                 params=params),
+                                         jgraph, jcfg, jpolicy, None)
+    jcarry = j_persistent_drive(jstep, jcond,
+                                (jq, js, jnp.int32(0), jnp.int32(0)))
+    tcfg = config_for(SchedulerConfig(**base),
+                      parse_policy("single.megakernel" + suffix))
+    setup = drain_setup(build_program(algo, tgraph, tcfg, params=params),
+                        tgraph, tcfg)
+    assert setup.kernel is None             # CPU tensors: the plain drain
+    tcarry = megakernel_drive(setup.step, setup.cond, setup.carry)
+    for field in ("buf", "head", "tail", "dropped"):
+        _eq(getattr(tcarry[0], field), getattr(jcarry[0], field),
+            f"queue {field}")
+    assert [int(x) for x in tcarry[2:]] == [int(x) for x in jcarry[2:]]
+    return jcarry, tcarry
+
+
+def _counters_equal(ts, js):
+    for field in ("work", "splits", "rounds"):
+        assert int(getattr(ts.counter, field)) == int(
+            getattr(js.counter, field)), field
+
+
+# (G, params, config fields): a non-power-of-two width code, a wide window,
+# windows that split, a budget at the max degree that re-queues chunks
+# whole, and per_item
+WIDE_BFS = [(2, {}, {}), (3, {}, {}), (8, {}, {}),
+            (3, {}, {"split_threshold": 6}),
+            (3, {"work_budget": "max_degree"}, {}),
+            (3, {"strategy": "per_item"}, {"split_threshold": 6}),
+            (8, {"strategy": "per_item"}, {})]
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("g,params,fields", WIDE_BFS)
+def test_wide_megakernel_drain_matches_jax_with_its_queue(graphs, graph, g,
+                                                          params, fields):
+    jgraph, tgraph = graphs[graph]
+    params = {"source": 3, **params}
+    if params.get("work_budget") == "max_degree":
+        params["work_budget"] = int(np.asarray(jgraph.degrees()).max())
+    jcarry, tcarry = _final_carries(jgraph, tgraph, "bfs", g, params,
+                                    **fields)
+    _eq(tcarry[1].dist, jcarry[1].dist, "dist")
+    _counters_equal(tcarry[1], jcarry[1])
+    assert int(tcarry[0].dropped) == 0 and int(tcarry[2]) > 1
+    if fields and graph == "rmat(8,8,1)":
+        assert int(tcarry[1].counter.splits) > 0
+
+
+@pytest.fixture(scope="module")
+def tape_graph():
+    """rmat(8,8,1) with its ids reversed, so that vertex n - 1 is a hub and
+    its window is busy; rows of degree 0 stay."""
+    jgraph = jg.rmat(8, 8, seed=1)
+    n = jgraph.num_vertices
+    jgraph = jg.permute_vertices(jgraph, np.arange(n)[::-1].copy())
+    return jgraph, graph_from_numpy(np.asarray(jgraph.row_ptr),
+                                    np.asarray(jgraph.col_idx), device="cpu")
+
+
+def _tape_chunks(jgraph, g, seed):
+    """Chunk heads and widths at granularity ``g`` over ``jgraph``: a chunk
+    with a zero-degree member row, one that ends at n - 2, two with one
+    head, random ones, and ``reach``, a row with n - 1 among its neighbors
+    (the window of n - 1 is partial when G does not divide n)."""
+    rp = np.asarray(jgraph.row_ptr)
+    col = np.asarray(jgraph.col_idx)
+    n = rp.shape[0] - 1
+    deg = np.diff(rp)
+    zero = int(np.flatnonzero(deg[1:n - 1] == 0)[0]) + 1
+    reach = int(np.searchsorted(rp, np.flatnonzero(col == n - 1)[0],
+                                side="right") - 1)
+    rng = np.random.default_rng(seed)
+    heads = [zero - 1, n - 1 - g, 7, 7, reach] + list(
+        rng.integers(0, n - 1 - g, size=11))
+    widths = [g, g, 2, g, 1] + list(rng.integers(1, g + 1, size=11))
+    assert n % g != 0 and deg[zero] == 0
+    return np.asarray(heads, np.int32), np.asarray(widths, np.int32), reach
+
+
+@pytest.mark.parametrize("strategy", ["merge_path", "per_item"])
+def test_bfs_body_matches_jax_on_a_g3_tape(tape_graph, strategy):
+    """The BFS body at G = 3 on a hand-made wavefront; the distances make
+    every neighbor of a popped row an improvement, n - 1 among them, so the
+    push coalesces the partial window of n - 1 and others."""
+    jgraph, tgraph = tape_graph
+    g = 3
+    n = jgraph.num_vertices
+    heads, widths, reach = _tape_chunks(jgraph, g, seed=5)
+    items = np.asarray(JCodec(g).encode(jnp.asarray(heads),
+                                        jnp.asarray(widths)))
+    valid = np.ones(items.shape[0], bool)
+    valid[-2:] = False
+    items = np.where(valid, items, np.int32(-2 ** 31)).astype(np.int32)
+    dist = np.full(n, 0x7FFFFFFF, np.int32)
+    for h, w in zip(heads[valid], widths[valid]):
+        dist[h:h + w] = 1
+    max_degree = int(np.asarray(jgraph.degrees()).max())
+    budget = 4 * max_degree                 # truncates the tail chunks
+    for threshold in (None, 6):
+        jf = jbfs.make_wavefront_fn(jgraph, strategy, budget, max_degree,
+                                    codec=JCodec(g), split_threshold=threshold)
+        tf = tbfs.make_wavefront_fn(tgraph, strategy, budget, max_degree,
+                                    backend="torch", codec=ChunkCodec(g),
+                                    split_threshold=threshold)
+        jstate = jbfs.BFSState(dist=jnp.asarray(dist),
+                               counter=jbfs.WorkCounter.zero())
+        tstate = bfs_state_from_numpy(dist, 0, 0, 0, device="cpu")
+        jout = jf(jnp.asarray(items), jnp.asarray(valid), jstate)
+        tout = tf(torch.from_numpy(items), torch.from_numpy(valid), tstate)
+        for got, want in zip(tout[:2], jout[:2]):
+            _eq(got, want)
+        _eq(tout[2].dist, jout[2].dist, "dist")
+        _counters_equal(tout[2], jout[2])
+        assert int(tout[2].dist[n - 1]) == 2
+        if threshold is not None:
+            assert int(tout[2].counter.splits) > 0
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 64])
+def test_chunk_operands_and_chunk_degree_bound(graphs, g):
+    """The drain kernels' chunk operands against the codec, and the bound
+    on a chunk's units against numpy."""
+    from repro_torch.algorithms.common import max_chunk_degree_of
+    from repro_torch.kernels.drain_loop.launch import (INT_MAX,
+                                                       chunk_operands)
+
+    jgraph, tgraph = graphs["rmat(8,8,1)"]
+    n = tgraph.num_vertices
+    assert chunk_operands("k", n, g, None) == (g, JCodec(g).width_bits,
+                                               INT_MAX)
+    assert chunk_operands("k", n, g, 17)[2] == 17
+    with pytest.raises(ValueError, match="int32 chunk codes"):
+        chunk_operands("k", 2 ** 31 >> JCodec(g).width_bits, g, None)
+    rp = np.asarray(jgraph.row_ptr).astype(np.int64)
+    ends = np.minimum(np.arange(n) + g, n)
+    assert max_chunk_degree_of(tgraph, g) == int((rp[ends] - rp[:-1]).max())

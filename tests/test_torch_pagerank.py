@@ -5,7 +5,11 @@ granularity 1 and 4 (duplicate heads, truncation, a rescan window that
 wraps); ``execute`` under ``single.persistent``, ``single.discrete`` and
 ``single.megakernel`` (the plain fused drain on CPU tensors) against JAX's
 ``single.persistent`` cell; a ``max_rounds`` cut, segmented drains and a
-JAX drain handed across mid-way; ``pagerank_bsp`` and
+JAX drain handed across mid-way; beyond granularity 1 (G = 2, 3, 8;
+windows that split; chunks re-queued whole past a tight budget) the
+megakernel drain's final queue too, and the body at G = 3 on a hand-made
+wavefront (a zero-degree member row, the partial window of vertex n - 1,
+duplicate and overlapping chunks, one of them truncated); ``pagerank_bsp`` and
 ``pagerank_reference``; and the ordered scatter-add's plain version against
 a left-to-right numpy loop.
 
@@ -23,14 +27,15 @@ import repro_torch.graph as tg
 from repro.algorithms import pagerank as jpr
 from repro.core import ChunkCodec as JCodec
 from repro.core import SchedulerConfig as JConfig
+from repro.core.scheduler import persistent_drive as j_persistent_drive
 from repro.runtime import build_program as j_build
 from repro.runtime import config_for as j_config_for
 from repro.runtime import execute as j_execute
 from repro.runtime import parse_policy as j_parse
 from repro.runtime.api import _shared_setup as j_setup
 from repro_torch.algorithms import pagerank as tpr
-from repro_torch.convert import (pagerank_state_from_numpy, queue_from_numpy,
-                                 to_numpy)
+from repro_torch.convert import (graph_from_numpy, pagerank_state_from_numpy,
+                                 queue_from_numpy, to_numpy)
 from repro_torch.core import (ChunkCodec, SchedulerConfig, WorkCounter,
                               megakernel_drive, megakernel_segment)
 from repro_torch.kernels.scatter_add.ops import ordered_scatter_add
@@ -260,6 +265,112 @@ def test_drain_handed_across_mid_way(graphs, g):
         _assert_state(tcarry[1], carry[1])
         assert (int(tcarry[2]), int(tcarry[3])) == (int(carry[2]),
                                                     int(carry[3]))
+
+
+# ------------- the megakernel beyond granularity 1, final queue included
+WIDE = [(2, {}, {}), (3, {}, {}), (8, {}, {}),
+        (3, {}, {"split_threshold": 6}),
+        (3, {"work_budget": "max_degree"}, {})]
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("g,params,fields", WIDE)
+def test_wide_megakernel_drain_matches_jax_with_its_queue(graphs, graph, g,
+                                                          params, fields):
+    """The port's single.megakernel.g<G> plain fused drain against JAX's
+    single.persistent.g<G>, both set up by hand so that the final queue
+    comes back: state, counters (splits included), rounds, processed and
+    the queue, bitwise."""
+    jgraph, tgraph = graphs[graph]
+    if params.get("work_budget") == "max_degree":
+        params = {"work_budget": int(np.asarray(jgraph.degrees()).max())}
+    jpolicy = j_parse("single.persistent" + _suffix(g))
+    jcfg, tcfg = _configs("single.megakernel" + _suffix(g),
+                          "single.persistent" + _suffix(g), **fields)
+    jq, js, _, jstep, jcond, _ = j_setup(j_build("pagerank", jgraph, jcfg,
+                                                 params=params),
+                                         jgraph, jcfg, jpolicy, None)
+    jcarry = j_persistent_drive(jstep, jcond,
+                                (jq, js, jnp.int32(0), jnp.int32(0)))
+    setup = drain_setup(build_program("pagerank", tgraph, tcfg,
+                                      params=params), tgraph, tcfg)
+    assert setup.kernel is None             # CPU tensors: the plain drain
+    tcarry = megakernel_drive(setup.step, setup.cond, setup.carry)
+    for field in ("buf", "head", "tail", "dropped"):
+        np.testing.assert_array_equal(getattr(tcarry[0], field).numpy(),
+                                      np.asarray(getattr(jcarry[0], field)),
+                                      err_msg=field)
+    _assert_state(tcarry[1], jcarry[1])
+    assert [int(x) for x in tcarry[2:]] == [int(x) for x in jcarry[2:]]
+    assert int(tcarry[0].dropped) == 0
+    assert float(tcarry[1].residue.max()) <= 1e-6
+    if fields and graph == "rmat(8,8,1)":
+        assert int(tcarry[1].counter.splits) > 0
+
+
+@pytest.fixture(scope="module")
+def tape_graph():
+    """rmat(8,8,1) with its ids reversed, so that vertex n - 1 is a hub and
+    its window is busy; rows of degree 0 stay."""
+    jgraph = jg.rmat(8, 8, seed=1)
+    n = jgraph.num_vertices
+    jgraph = jg.permute_vertices(jgraph, np.arange(n)[::-1].copy())
+    return jgraph, graph_from_numpy(np.asarray(jgraph.row_ptr),
+                                    np.asarray(jgraph.col_idx), device="cpu")
+
+
+@pytest.mark.parametrize("threshold", [None, 6])
+def test_body_matches_jax_on_a_g3_tape(tape_graph, threshold):
+    """The body and on_empty at G = 3: a chunk with a zero-degree member
+    row, duplicate heads, chunks that share rows (one of each pair past
+    the budget, so its rows stay queued), and a rescan window over the
+    partial window of n - 1 with residues above eps."""
+    jgraph, tgraph = tape_graph
+    g = 3
+    n = jgraph.num_vertices
+    deg = np.asarray(jgraph.degrees())
+    zero = int(np.flatnonzero(deg[1:n - 1] == 0)[0]) + 1
+    rng = np.random.default_rng(9)
+    heads = np.asarray([zero - 1, 40, 40, 41, 60] + list(
+        rng.integers(0, n - g, size=14)) + [61, 0, 0], np.int32)
+    widths = np.asarray([3, 2, 3, 3, 2] + list(
+        rng.integers(1, g + 1, size=14)) + [3, 1, 1], np.int32)
+    jcodec, tcodec = JCodec(g), ChunkCodec(g)
+    items = np.asarray(jcodec.encode(jnp.asarray(heads), jnp.asarray(widths)))
+    valid = np.ones(items.shape[0], bool)
+    valid[-2:] = False
+    items = np.where(valid, items, np.int32(-2 ** 31)).astype(np.int32)
+    st = dict(rank=rng.random(n).astype(np.float32),
+              residue=(rng.random(n) * 4e-6).astype(np.float32),
+              in_queue=rng.random(n) < 0.2,
+              check_cursor=np.int32(n - 9))      # over n - 1, wraps
+    kw = dict(wavefront=items.shape[0], n_check=24, damping=0.85, eps=1e-6,
+              work_budget=int(deg.max()) * 2, split_threshold=threshold)
+    jf, jempty, _ = jpr.make_wavefront_fns(jgraph, codec=jcodec,
+                                           backend="jnp", **kw)
+    tf, tempty, _ = tpr.make_wavefront_fns(tgraph, codec=tcodec,
+                                           backend="torch", **kw)
+    jstate = jpr.PRState(**{k: jnp.asarray(v) for k, v in st.items()},
+                         counter=jpr.WorkCounter.zero())
+    tstate = pagerank_state_from_numpy(**st, work=0, splits=0, rounds=0,
+                                       device="cpu")
+    for jout, tout in ((jf(jnp.asarray(items), jnp.asarray(valid), jstate),
+                        tf(torch.from_numpy(items), torch.from_numpy(valid),
+                           tstate)),
+                       (jempty(jstate), tempty(tstate))):
+        for got, want in zip(tout[:2], jout[:2]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        _assert_state(tout[2], jout[2])
+    # some chunks were truncated, and the window of n - 1 pushed
+    assert int(np.asarray(jout[1]).sum()) > 0
+    body = tf(torch.from_numpy(items), torch.from_numpy(valid), tstate)
+    assert bool(body[1][-items.shape[0]:].any())
+    if threshold is not None:
+        assert int(body[2].counter.splits) > 0
+    # row 61: harvested by the chunk (60, 2), still queued by the truncated
+    # (61, 3)
+    assert float(body[2].rank[61]) != float(st["rank"][61])
+    assert bool(body[2].in_queue[61]) and not bool(body[2].in_queue[60])
 
 
 def test_pagerank_async_driver_matches_jax(graphs):
