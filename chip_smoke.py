@@ -37,9 +37,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      rank, residue, presence bits, counters, RunStats and the final queue
      bitwise equal between the two cells; 64-round segments equal the
      whole; at rmat(14) the kernel drain equals the plain drain run on the
-     CPU bit for bit; drains timed in turn (persistent, megakernel,
-     megakernel, persistent), B3-pr's device time, busy shares, and the
-     first 64 rounds against the plain fused drain on the card;
+     CPU bit for bit; one persistent drain (timed once: it gives the
+     state, RunStats, info and final queue) and two megakernel drains,
+     B3-pr's device time, busy shares, and the first 64 rounds against the
+     plain fused drain on the card;
   4d. coloring on the same graph likewise: persistent (backends auto and
      torch, bitwise equal; valid, checked on the card), megakernel as one
      launch of B3-col equal to it, queue and counters included; segments;
@@ -59,6 +60,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      plain fused drain (PageRank's run on the CPU); one warm drain of each
      cell timed (host clock, device time, busy share) and the kernel
      against its plain version;
+  4f. the fused topology and the traced drains (ROADMAP A7, A10): BFS
+     ``fused.persistent`` g1 through B1 and B2 on packed items (launch
+     counts as in 4, dist equal to scipy, state, RunStats, info equal to
+     single.persistent, the final lane its queue packed, no host sync in
+     a window); each program's ``fused.megakernel`` g1 as one launch of its
+     drain kernel's fused mode, bitwise equal to the single.megakernel
+     carries of 4b-4d; BFS and coloring at ``fused.megakernel.g2`` and BFS
+     ``.g4`` on grid2d against their single cells; ``fused.*.g4`` on
+     rmat(21) refused by admission before any launch; PageRank
+     ``fused.persistent`` cut at 512 rounds against single alike; traced
+     drains (``Trace()``): BFS persistent (one row a round, rows reconcile
+     with the counters), each program's traced single and fused
+     megakernel as one launch of the traced mode, equal to the untraced
+     drain, BFS's rows equal to the persistent rows and PageRank's first
+     512 and coloring's first 128 to the traced persistent drains cut
+     alike; the JSONL and Chrome traces written under
+     ``chiprun_out/chip_smoke/`` and validated; one warm drain of each
+     mode beside the untraced single drain; each mode's first 64 rounds
+     against its plain fused drain (PageRank's on the CPU), and the fused
+     traced modes whole at rmat(14) against the plain fused drain;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events -- and the main drain
@@ -106,8 +127,12 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INF = 0x7FFFFFFF
 
 
+STARTED = time.perf_counter()
+
+
 def log(*parts) -> None:
-    print(*parts, flush=True)
+    """Print a line stamped with the seconds since the script started."""
+    print(f"{time.perf_counter() - STARTED:7.1f}s", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -520,20 +545,25 @@ def run_algo(algo: str, graph, cfg, params=None) -> tuple:
     return state, stats, info, time.perf_counter() - t0
 
 
-def drive(algo: str, graph, cfg, params=None, limit=None) -> tuple:
+def drive(algo: str, graph, cfg, params=None, limit=None,
+          trace=None) -> tuple:
     """``(carry, seconds)`` of one drain set up with ``drain_setup``, so
     that the final queue comes back: the persistent driver, or the
     megakernel cell's kernel (or plain fused drain) with host syncs set to
-    raise around a kernel launch."""
+    raise around a kernel launch.  With a ``trace`` (a ``Trace``) the carry
+    has the ring as its fifth leaf."""
     from repro_torch.core import (megakernel_drive, no_host_sync,
                                   persistent_drive)
     from repro_torch.runtime import build_program, policy_of
     from repro_torch.runtime.api import drain_setup
 
     setup = drain_setup(build_program(algo, graph, cfg, params=params),
-                        graph, cfg)
+                        graph, cfg, trace=trace)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    start.record()
     if policy_of(cfg).kernel != "megakernel":
         carry = persistent_drive(setup.step, setup.cond, setup.carry)
     elif setup.kernel is None:
@@ -543,7 +573,9 @@ def drive(algo: str, graph, cfg, params=None, limit=None) -> tuple:
         with no_host_sync(graph.device):
             carry = megakernel_drive(setup.step, setup.cond, setup.carry,
                                      limit=limit, kernel=setup.kernel)
+    end.record()
     torch.cuda.synchronize()
+    drive.event_ms = start.elapsed_time(end)
     return carry, time.perf_counter() - t0
 
 
@@ -562,13 +594,34 @@ def same_leaves(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
+def lane_queue(queue):
+    """The TaskQueue a drain drains: the queue, or a fused carry's lane 0."""
+    from repro_torch.core import MultiQueue
+
+    return queue.lane(0) if isinstance(queue, MultiQueue) else queue
+
+
 def scalars(carry) -> list:
-    """The carry's integer scalars: queue head, tail, dropped, rounds,
-    processed, then the state's 0-dim leaves."""
-    queue, state, rounds, processed = carry
+    """The carry's integer scalars: queue (or lane 0) head, tail, dropped,
+    rounds, processed, then the state's 0-dim leaves."""
+    queue, state, rounds, processed = carry[:4]
+    queue = lane_queue(queue)
     return [int(x) for x in (queue.head, queue.tail, queue.dropped, rounds,
                              processed)] + [int(x) for x in leaves(state)
                                             if x.dim() == 0]
+
+
+def outcome(carry, megakernel: bool) -> tuple:
+    """``(state, RunStats, info)`` of a drain's final carry, as ``execute``
+    reports them."""
+    from repro_torch.core import RunStats
+
+    queue, state, rounds, processed = carry[:4]
+    dropped = lane_queue(queue).dropped
+    info = {"rounds": int(rounds), "work": int(state.counter.work),
+            "dropped": int(dropped), "splits": int(state.counter.splits),
+            "launches": 1 if megakernel else int(rounds)}
+    return state, RunStats(rounds, processed, dropped), info
 
 
 def segmented(algo: str, graph, cfg, every: int, params=None) -> tuple:
@@ -676,7 +729,7 @@ def first_rounds_times(algo: str, graph, kernel_name: str,
                else int(wrapper.visits))
     _, k_rows = device_profile(
         lambda: drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS))
-    k_ms = kernel_device_ms(k_rows, kernel_name)
+    k_ms, k_timed_by = kernel_device_ms(k_rows, kernel_name, drive.event_ms)
     ev_ms = cuda_ms(lambda: drive(algo, graph, cfg_k, params,
                                   limit=FIRST_ROUNDS), reps=3, warmup=1)
     held = {}
@@ -686,7 +739,7 @@ def first_rounds_times(algo: str, graph, kernel_name: str,
     if p_ms is None:
         raise AssertionError(f"{algo}: the profiler saw no device time of "
                              f"the plain fused drain")
-    timed_by = "profiler device time"
+    timed_by = k_timed_by
     if int(plain_carry[2]) != int(carry[2]):
         raise AssertionError(f"{algo}: the plain fused drain ran "
                              f"{int(plain_carry[2])} rounds, not "
@@ -730,9 +783,12 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
     cfg_p = algo_config("single.persistent")
     cfg_m = algo_config("single.megakernel")
     walls = {"persistent": [], "megakernel": []}
+    # one persistent drain (71-76 s at rmat(21)) gives the state, RunStats,
+    # info and final queue, set up by hand as execute sets it up
     reset_counts()
-    state, stats, info, secs = run_algo("pagerank", graph, cfg_p, PR_PARAMS)
+    carry_p, secs = drive("pagerank", graph, cfg_p, PR_PARAMS)
     counts = read_counts()
+    state, stats, info = outcome(carry_p, megakernel=False)
     walls["persistent"].append(secs)
     rounds = info["rounds"]
     steps = -(-rounds // POLL_EVERY) * POLL_EVERY
@@ -771,11 +827,10 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
     log("    rank, residue, presence bits, cursor, WorkCounter, RunStats and "
         "info equal the persistent drain's, bit for bit")
 
-    # the final queue: both drains again, set up by hand, alternated
+    # the final queue: the megakernel drain again, set up by hand, against
+    # the persistent drain's carry
     carry_m, secs = drive("pagerank", graph, cfg_m, PR_PARAMS)
     walls["megakernel"].append(secs)
-    carry_p, secs = drive("pagerank", graph, cfg_p, PR_PARAMS)
-    walls["persistent"].append(secs)
     if not same_leaves(carry_m, carry_p) or not same_leaves(carry_m[1],
                                                             state):
         raise AssertionError(f"megakernel carry differs from the persistent "
@@ -858,8 +913,8 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
            "first_rounds_n": int(fc[2])}
     mean_p = sum(walls["persistent"]) / len(walls["persistent"])
     mean_m = sum(walls["megakernel"]) / len(walls["megakernel"])
-    log(f"    drains in turn (persistent, megakernel, megakernel, "
-        f"persistent): persistent {walls['persistent']} s, megakernel "
+    log(f"    drains (persistent once, the first; megakernel twice, after "
+        f"it): persistent {walls['persistent']} s, megakernel "
         f"{walls['megakernel']} s; {rounds} rounds, work/n "
         f"{out['work_per_n']:.3f}: {1e3 * mean_p / rounds:.3f} vs "
         f"{1e3 * mean_m / rounds:.4f} ms/round  [{card}]")
@@ -881,19 +936,21 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
         f"{first['max_abs_err']}); the plain drain on the card (another "
         f"summation order) differs by at most "
         f"{first['plain_on_cuda_max_abs_err']:.3g}")
+    out["carry"] = carry_m             # for phase 4f; not in the summary
     return out
 
 
-def host_plain_drain(algo: str, host_graph, cfg, params=None):
+def host_plain_drain(algo: str, host_graph, cfg, params=None, trace=None):
     """The plain drain on CPU tensors: ``fused_drain_ref`` (kernel B3's
     plain version) over the step of ``cfg``'s cell, whose expansion is the
-    flat gather through B1's plain version (equal to the streamed one)."""
+    flat gather through B1's plain version (equal to the streamed one);
+    traced with a ``trace``."""
     from repro_torch.kernels.drain_loop.kernel import fused_drain_ref
     from repro_torch.runtime import build_program
     from repro_torch.runtime.api import drain_setup
 
     setup = drain_setup(build_program(algo, host_graph, cfg, params=params),
-                        host_graph, cfg)
+                        host_graph, cfg, trace=trace)
     return fused_drain_ref(setup.step, setup.cond, setup.carry)
 
 
@@ -1045,6 +1102,7 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
     log(f"    first {out['first_rounds_n']} rounds: the kernel's carry "
         f"equals {first['held_against']} bit for bit (max |diff| "
         f"{first['max_abs_err']})")
+    out["carry"] = carry_m             # for phase 4f; not in the summary
     return out
 
 
@@ -1061,40 +1119,48 @@ def same_or_raise(label: str, got, want) -> None:
                              f"(max |diff| {carry_err(got, want)})")
 
 
-def kernel_device_ms(rows, kernel_name: str) -> float:
-    """The profiler's device ms of ``kernel_name``'s rows; raises where the
-    profiler saw no such kernel, so that no other time stands in for it."""
+def kernel_device_ms(rows, kernel_name: str, events_ms: float,
+                     events: str = "CUDA events around the driver call"
+                     ) -> tuple:
+    """``(ms, timed_by)``: the profiler's device ms of ``kernel_name``'s
+    rows, or, where the profiler dropped the launch's record (it drops
+    some, see ``device_profile``), ``events_ms``, the same run timed
+    between CUDA events, named so that no other time stands in unnamed."""
     ms = sum(t for key, t, _ in rows if kernel_name in key)
-    if not ms > 0:
-        raise AssertionError(f"the profiler saw no {kernel_name} kernel: "
-                             f"{[key[:60] for key, _, _ in rows[:8]]}")
-    return ms
+    if ms > 0:
+        return ms, "profiler device time"
+    return events_ms, f"{events} (the profiler dropped the kernel's record)"
 
 
 def profiled_drive(algo: str, graph, cfg, kernel_name: str | None,
-                   params=None) -> dict:
+                   params=None, limit=None, trace=None) -> dict:
     """One warm drain under the profiler: host seconds, device ms, the
     kernel's device ms (``kernel_name`` None: the plain drain's whole device
     time) and the busy share.  Raises where the profiler saw no device
     time or not the kernel."""
     held = {}
     dev_ms, rows = device_profile(lambda: held.update(
-        out=drive(algo, graph, cfg, params)))
+        out=drive(algo, graph, cfg, params, limit=limit, trace=trace)))
     carry, secs = held["out"]
     if dev_ms is None:
         raise AssertionError(f"{algo}: the profiler saw no device time")
-    k_ms = dev_ms if kernel_name is None else kernel_device_ms(rows,
-                                                               kernel_name)
+    timed_by = "profiler device time"
+    k_ms, busy = dev_ms, dev_ms / (1e3 * secs)
+    if kernel_name is not None:
+        k_ms, timed_by = kernel_device_ms(rows, kernel_name, drive.event_ms)
+        if timed_by != "profiler device time":
+            busy = None                # the device total lacks the kernel
     return {"carry": carry, "seconds": secs, "device_ms": dev_ms,
-            "kernel_ms": k_ms, "timed_by": "profiler device time",
-            "busy_share": dev_ms / (1e3 * secs), "rows": rows[:8]}
+            "kernel_ms": k_ms, "timed_by": timed_by, "busy_share": busy,
+            "rows": rows[:8]}
 
 
 def bfs_bytes(units: int, carry) -> int:
     """Bytes a BFS drain must move: per unit its col_idx word and dist[nbr]
     (8); per pop its ring word and two row_ptr words (12); per push its
     ring word (4)."""
-    return 8 * units + 12 * int(carry[3]) + 4 * int(carry[0].tail)
+    return (8 * units + 12 * int(carry[3])
+            + 4 * int(lane_queue(carry[0]).tail))
 
 
 def per_item_cut(graph, params, card: str) -> dict:
@@ -1481,6 +1547,400 @@ def wide_coloring(graph, card: str, small_scale: int) -> dict:
     log(f"    coloring g4 first {FIRST_ROUNDS} rounds: kernel {first['ms']} "
         f"ms, plain fused drain {first['plain_ms']} ms device, bound "
         f"{out['first_bound_ms']:.4f} ms; equal bit for bit  [{card}]")
+    return out
+
+
+# ------------- phase 4f: the fused topology and the traced drains (A7, A10)
+TRACE_CAPACITY = 16384             # rows: at least PageRank's g1 rounds
+ROW_BYTES = 4 * 13                 # one trace row (obs/schema.TRACE_FIELDS)
+DRAINS = {"bfs": "bfs_drain", "pagerank": "pagerank_drain",
+          "coloring": "coloring_drain"}
+
+
+def fused_equals_single(fused, single) -> bool:
+    """A fused carry against a single one: state, rounds and processed
+    equal, the lane's cursors the queue's, and every slot of the lane the
+    queue's task packed with job 0 (EMPTY where the queue was never
+    written)."""
+    from repro_torch.core import EMPTY
+    from repro_torch.server.encoding import pack
+
+    lane, queue = lane_queue(fused[0]), single[0]
+    want = torch.where(queue.buf == EMPTY, EMPTY, pack(0, queue.buf))
+    return (torch.equal(lane.buf, want)
+            and [int(x) for x in (lane.head, lane.tail, lane.dropped)]
+            == [int(x) for x in (queue.head, queue.tail, queue.dropped)]
+            and same_leaves(tuple(fused[1:4]), tuple(single[1:4])))
+
+
+def rows_of(ring) -> list:
+    from repro_torch.obs import ring_rows
+
+    rows, truncated = ring_rows(ring)
+    if truncated:
+        raise AssertionError(f"the trace ring dropped {truncated} rows")
+    return rows
+
+
+def traced_rows(algo: str, graph, cfg, params=None) -> tuple:
+    """``(carry, rows)`` of a traced drain (``drive`` with a Trace)."""
+    from repro_torch.obs import Trace
+
+    carry, _ = drive(algo, graph, cfg, params,
+                     trace=Trace(capacity=TRACE_CAPACITY))
+    return carry, rows_of(carry[4])
+
+
+def mode_first_rounds(algo: str, graph, policy: str, params,
+                      traced: bool) -> dict:
+    """A drain kernel's mode over the first FIRST_ROUNDS rounds of the
+    main drain: the kernel (device time by the profiler) and the plain
+    fused drain over the same (fused or traced) step, backend torch, on
+    the card, held bitwise -- for PageRank, whose plain scatter-add on the
+    card sums in another order, against the plain drain on the CPU."""
+    from repro_torch.obs import Trace
+
+    def trace():
+        return Trace(capacity=TRACE_CAPACITY) if traced else None
+
+    name = DRAINS[algo]
+    wrapper = _wrappers()[name]
+    reset_counts()
+    kern = profiled_drive(algo, graph, algo_config(policy), name, params,
+                          limit=FIRST_ROUNDS, trace=trace())
+    counts = read_counts()
+    if counts != only(**{name: 1}):
+        raise AssertionError(f"{algo} {policy}: expected one {name} launch "
+                             f"and no other, got {counts}")
+    counted = (int(wrapper.visits) if algo == "coloring"
+               else int(wrapper.units_expanded))
+    plain = profiled_drive(algo, graph, algo_config(policy, backend="torch"),
+                           None, params, limit=FIRST_ROUNDS, trace=trace())
+    carry = kern["carry"]
+    if algo == "pagerank":
+        # the discrete cell's step, whose flat gather is far cheaper on the
+        # CPU than the plain stream (host_plain_drain)
+        t0 = time.perf_counter()
+        want = host_plain_drain(algo, graph.to("cpu"), algo_config(
+            policy.replace("megakernel", "discrete"),
+            max_rounds=FIRST_ROUNDS), params, trace=trace())
+        cpu_secs = time.perf_counter() - t0
+        held_against = "the plain fused drain on the CPU"
+    else:
+        want, cpu_secs = plain["carry"], None
+        held_against = "the plain fused drain on the card"
+    same_or_raise(f"{algo} {policy}{' traced' if traced else ''}, first "
+                  f"{FIRST_ROUNDS} rounds, kernel vs {held_against}", carry,
+                  want)
+    n = graph.num_vertices
+    rounds = int(carry[2])
+    pushed = int(lane_queue(carry[0]).tail) - (
+        0 if algo == "bfs" else n)
+    if algo == "bfs":
+        moved = bfs_bytes(counted, carry)
+    elif algo == "pagerank":
+        n_check = min(1024 * PR_PARAMS["check_size"], n)
+        moved = pagerank_bytes(counted, int(carry[1].counter.work),
+                               int(carry[3]), rounds, n_check, pushed)
+    else:
+        moved = coloring_bytes(counted, int(carry[3]),
+                               int(carry[1].counter.work), pushed)
+    moved += ROW_BYTES * rounds if traced else 0
+    return {"carry": carry, "counts": counts, "rounds": rounds,
+            "kernel_ms": kern["kernel_ms"], "timed_by": kern["timed_by"],
+            "plain_ms": plain["device_ms"], "plain_seconds": plain["seconds"],
+            "cpu_plain_seconds": cpu_secs, "held_against": held_against,
+            "max_abs_err": carry_err(carry, want),
+            "bound_bytes": moved}
+
+
+def fused_and_traced(graph, grid, source: int, want, want_grid, mega: dict,
+                     pr: dict, col: dict, single: tuple, card: str,
+                     small_scale: int) -> dict:
+    """Phase 4f: the fused topology (BFS persistent through B1 and B2 on
+    packed items; each program's megakernel as one launch of its drain
+    kernel's fused mode, g1 and g2, and BFS g4 on grid2d; g4 refused at
+    rmat(21) by the admission check) and the traced drains (persistent,
+    and each megakernel as one launch of the kernel's traced mode), held
+    against the single cells of phases 4-4d, scipy, the traced persistent
+    rows and the plain fused drains; their files written and validated;
+    each mode's drain timed beside the untraced single drain."""
+    from repro_torch.algorithms.coloring import validate_coloring
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.obs import (Trace, validate_chrome_trace,
+                                 validate_metrics_jsonl)
+    from repro_torch.runtime import build_program, execute
+
+    out = {}
+    bfs_params = {"source": source}
+    params_of = {"bfs": bfs_params, "pagerank": PR_PARAMS, "coloring": None}
+    singles = {"bfs": mega["carry"], "pagerank": pr["carry"],
+               "coloring": col["carry"]}
+
+    # BFS fused.persistent g1: B1 and B2 on packed items
+    state_s, stats_s, info_s = single
+    reset_counts()
+    carry_f, secs_f = drive("bfs", graph, algo_config("fused.persistent"),
+                            bfs_params)
+    counts = read_counts()
+    state, stats, info = outcome(carry_f, megakernel=False)
+    steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
+    if counts != only(lbs=steps, compact=steps + 1):
+        raise AssertionError(f"BFS fused.persistent: expected one LBS and "
+                             f"one compaction per predicated step ({steps})"
+                             f" plus the seed push's, got {counts}")
+    if not np.array_equal(state.dist.cpu().numpy(), want) \
+            or not same_leaves(state, state_s) or info != info_s \
+            or [int(x) for x in stats] != [int(x) for x in stats_s] \
+            or not fused_equals_single(carry_f, mega["carry"]):
+        raise AssertionError(f"BFS fused.persistent differs from scipy or "
+                             f"single.persistent: {info} vs {info_s}")
+    out["bfs_fused_persistent"] = {"info": info, "counts": counts,
+                                   "seconds": secs_f}
+    log(f"    BFS fused.persistent g1: counts={counts}; dist equals scipy; "
+        f"dist, counters, RunStats and info equal single.persistent's, the "
+        f"final lane its queue packed (cursors equal); {secs_f:.3f} s, no "
+        f"host sync inside a window  [{card}]")
+
+    # each program's fused.megakernel g1: one launch of the fused mode,
+    # against the single.megakernel carries of 4b-4d; then each mode timed
+    timing = {}
+    for algo, name in DRAINS.items():
+        params = params_of[algo]
+        reset_counts()
+        fused = profiled_drive(algo, graph, algo_config("fused.megakernel"),
+                               name, params)
+        counts = read_counts()
+        if counts != only(**{name: 1}):
+            raise AssertionError(f"{algo} fused.megakernel: expected one "
+                                 f"{name} launch and no other: {counts}")
+        if not fused_equals_single(fused["carry"], singles[algo]):
+            raise AssertionError(f"{algo} fused.megakernel differs from "
+                                 f"single.megakernel: "
+                                 f"{scalars(fused['carry'])} vs "
+                                 f"{scalars(singles[algo])}")
+        untraced = profiled_drive(algo, graph,
+                                  algo_config("single.megakernel"), name,
+                                  params)
+        same_or_raise(f"{algo} single.megakernel, two drains",
+                      untraced["carry"], singles[algo])
+        traced = {}
+        for topology in ("single", "fused"):
+            reset_counts()
+            run = profiled_drive(
+                algo, graph, algo_config(f"{topology}.megakernel"), name,
+                params, trace=Trace(capacity=TRACE_CAPACITY))
+            counts_t = read_counts()
+            if counts_t != only(**{name: 1}):
+                raise AssertionError(f"{algo} traced {topology}.megakernel:"
+                                     f" expected one {name} launch, got "
+                                     f"{counts_t}")
+            held = run["carry"][:4]
+            if not (same_leaves(held, singles[algo]) if topology == "single"
+                    else fused_equals_single(held, singles[algo])):
+                raise AssertionError(f"{algo} traced {topology}.megakernel "
+                                     f"differs from the untraced drain")
+            rows = rows_of(run["carry"][4])
+            if len(rows) != int(run["carry"][2]) \
+                    or sum(r["pops"] for r in rows) != int(run["carry"][3]) \
+                    or sum(r["work"] for r in rows) \
+                    != int(run["carry"][1].counter.work):
+                raise AssertionError(f"{algo} traced {topology}: rows do "
+                                     f"not reconcile with the carry")
+            traced[topology] = {"rows": rows, "counts": counts_t,
+                                **{k: v for k, v in run.items()
+                                   if k not in ("carry", "rows")}}
+        if traced["single"]["rows"] != traced["fused"]["rows"]:
+            raise AssertionError(f"{algo}: the fused traced rows differ "
+                                 f"from the single traced rows")
+        timing[algo] = {
+            "single": {k: untraced[k] for k in ("seconds", "kernel_ms",
+                                                "busy_share")},
+            "fused": {"launches": counts[name],
+                      **{k: fused[k] for k in ("seconds", "kernel_ms",
+                                               "busy_share")}},
+            "single_traced": {"launches": traced["single"]["counts"][name],
+                              **{k: traced["single"][k] for k in (
+                                  "seconds", "kernel_ms", "busy_share")}},
+            "fused_traced": {k: traced["fused"][k] for k in (
+                "seconds", "kernel_ms", "busy_share")},
+            "rounds": int(singles[algo][2])}
+        out[f"{algo}_rows"] = traced["single"]["rows"]
+        t = timing[algo]
+        log(f"    {algo} g1 megakernel drains, one each, warm ({name} "
+            f"device ms / host s): single {t['single']['kernel_ms']:.3f} / "
+            f"{t['single']['seconds']:.4f}, fused "
+            f"{t['fused']['kernel_ms']:.3f} / {t['fused']['seconds']:.4f}, "
+            f"single traced {t['single_traced']['kernel_ms']:.3f} / "
+            f"{t['single_traced']['seconds']:.4f}, fused traced "
+            f"{t['fused_traced']['kernel_ms']:.3f} / "
+            f"{t['fused_traced']['seconds']:.4f}; {t['rounds']} rounds; "
+            f"each one launch, equal to single.megakernel bit for bit, the "
+            f"rows reconcile with the carry  [{card}]")
+    out["timing"] = timing
+
+    # the traced rows against the traced persistent drains
+    carry_t, rows_p = traced_rows("bfs", graph,
+                                  algo_config("single.persistent"),
+                                  bfs_params)
+    if not same_leaves(tuple(carry_t[:4]), singles["bfs"]) \
+            or len(rows_p) != info_s["rounds"] \
+            or sum(r["pops"] for r in rows_p) != int(stats_s.items_processed) \
+            or sum(r["work"] for r in rows_p) != info_s["work"]:
+        raise AssertionError("the traced BFS persistent drain differs from "
+                             "the untraced one or its rows do not reconcile")
+    if out["bfs_rows"] != rows_p:
+        raise AssertionError("BFS: the megakernel's trace rows differ from "
+                             "the persistent drain's")
+    log(f"    traced single.persistent BFS g1: {len(rows_p)} rows, sum of "
+        f"pops = processed, sum of work = work, result equal to untraced, "
+        f"no host sync inside a window; the traced megakernels' rows equal "
+        f"its rows")
+    for algo, cut in (("pagerank", PR_CUT), ("coloring", COL_CUT)):
+        _, rows_c = traced_rows(algo, graph, algo_config(
+            "single.persistent", max_rounds=cut), params_of[algo])
+        rows_m = out[f"{algo}_rows"]
+        if rows_m[:cut] != rows_c or len(rows_c) != min(cut, len(rows_m)):
+            bad = next((i for i, (x, y) in enumerate(zip(rows_m, rows_c))
+                        if x != y), None)
+            raise AssertionError(f"{algo}: the megakernel's first {cut} "
+                                 f"trace rows differ from the traced "
+                                 f"persistent drain cut alike ({len(rows_c)}"
+                                 f" rows; first difference at {bad}: "
+                                 f"{None if bad is None else rows_m[bad]} vs "
+                                 f"{None if bad is None else rows_c[bad]})")
+        log(f"    {algo}: the traced megakernel's first {cut} rows equal "
+            f"the traced single.persistent drain's cut at {cut} rounds")
+
+    # the files: each program's traced megakernel drain through execute
+    written = {}
+    for algo in DRAINS:
+        trace = Trace(capacity=TRACE_CAPACITY, meta={"program": algo})
+        cfg = algo_config("fused.megakernel")
+        execute(build_program(algo, graph, cfg, params=params_of[algo]),
+                graph, cfg, trace=trace)
+        if [{k: v for k, v in r.items() if k != "engine"}
+                for r in trace.records] != out[f"{algo}_rows"]:
+            raise AssertionError(f"{algo}: execute's trace rows differ")
+        base = ROOT / "chiprun_out" / "chip_smoke" / f"trace_{algo}"
+        trace.write(f"{base}.json", f"{base}.jsonl")
+        n_docs = validate_metrics_jsonl(
+            Path(f"{base}.jsonl").read_text().splitlines())
+        n_events = validate_chrome_trace(
+            json.loads(Path(f"{base}.json").read_text()))
+        written[algo] = {"jsonl_docs": n_docs, "chrome_events": n_events}
+    out["files"] = written
+    log(f"    traces written to chiprun_out/chip_smoke/trace_*.json(l) and "
+        f"valid: {written}")
+    for algo in DRAINS:
+        out.pop(f"{algo}_rows")
+
+    # fused.megakernel.g2 (BFS, coloring) and BFS g4 on grid2d, against
+    # their single cells and scipy; g4 refused at rmat(21)
+    for algo, g, suffix, want_d in (("bfs", graph, ".g2", want),
+                                    ("coloring", graph, ".g2", None),
+                                    ("bfs", grid, ".g4", want_grid)):
+        params = ({"source": source if g is graph else 0}
+                  if algo == "bfs" else None)
+        label = f"{algo} fused.megakernel{suffix} " + (
+            "rmat" if g is graph else "grid2d")
+        carry_s, _ = drive(algo, g, algo_config("single.megakernel"
+                                                + suffix), params)
+        reset_counts()
+        carry_f, secs = drive(algo, g, algo_config("fused.megakernel"
+                                                   + suffix), params)
+        counts = read_counts()
+        if counts != only(**{DRAINS[algo]: 1}):
+            raise AssertionError(f"{label}: expected one launch, {counts}")
+        if not fused_equals_single(carry_f, carry_s):
+            raise AssertionError(f"{label} differs from single: "
+                                 f"{scalars(carry_f)} vs {scalars(carry_s)}")
+        ok = (np.array_equal(carry_f[1].dist.cpu().numpy(), want_d)
+              if algo == "bfs" else validate_coloring(g, carry_f[1].colors))
+        if not ok or int(lane_queue(carry_f[0]).dropped):
+            raise AssertionError(f"{label}: wrong result or drops")
+        out[label] = {"carry": scalars(carry_f), "seconds": secs}
+        held = "equals scipy" if algo == "bfs" else "is valid"
+        log(f"    {label}: one launch; equals single.megakernel{suffix} "
+            f"(lane = queue packed) and {held}; {int(carry_f[2])} rounds, "
+            f"{secs:.4f} s  [{card}]")
+    from repro_torch.server.encoding import check_job_fits
+
+    n = graph.num_vertices
+    try:
+        check_job_fits(0, n, granularity=4)
+        reason = None
+    except ValueError as e:
+        reason = str(e)
+    refused = []
+    for kernel in ("persistent", "discrete", "megakernel"):
+        if reason is None:         # a rehearsal's graph fits at g4
+            break
+        cfg = algo_config(f"fused.{kernel}.g4")
+        reset_counts()
+        try:
+            execute(build_program("bfs", graph, cfg, params=bfs_params),
+                    graph, cfg)
+        except ValueError as e:
+            if any(read_counts().values()) or str(e) != reason:
+                raise AssertionError(f"fused.{kernel}.g4: {e}; "
+                                     f"{read_counts()}") from e
+            refused.append(kernel)
+        else:
+            raise AssertionError(f"fused.{kernel}.g4 with n = {n} was not "
+                                 f"refused")
+    out["refused_g4"] = {"refused": refused, "reason": reason}
+    if reason is None:
+        log(f"    n = {n} fits at g4: the admission refusal is checked at "
+            f"full size")
+    else:
+        log(f"    fused.{{{', '.join(refused)}}}.g4 with n = {n}: admission "
+            f"refuses before any launch: {reason}")
+
+    # PageRank fused.persistent cut at PR_CUT rounds against single alike
+    cut_s, _ = drive("pagerank", graph, algo_config(
+        "single.persistent", max_rounds=PR_CUT), PR_PARAMS)
+    cut_f, secs = drive("pagerank", graph, algo_config(
+        "fused.persistent", max_rounds=PR_CUT), PR_PARAMS)
+    if not fused_equals_single(cut_f, cut_s) or int(cut_f[2]) != min(
+            PR_CUT, timing["pagerank"]["rounds"]):
+        raise AssertionError("PageRank fused.persistent cut differs from "
+                             "single.persistent cut alike")
+    log(f"    PageRank fused.persistent cut at {PR_CUT} rounds equals "
+        f"single.persistent cut alike bit for bit ({secs:.2f} s)  [{card}]")
+
+    # each mode over the first rounds at rmat(21) against its plain version,
+    # and the fused traced modes whole at rmat(small) on the card (PageRank
+    # on the CPU, cut at FIRST_ROUNDS)
+    first = {}
+    for algo in DRAINS:
+        for mode, policy, traced in (("fused", "fused.megakernel", False),
+                                     ("traced", "single.megakernel", True)):
+            first[f"{algo}.{mode}"] = mode_first_rounds(
+                algo, graph, policy, params_of[algo], traced)
+            r = first[f"{algo}.{mode}"]
+            log(f"    {DRAINS[algo]} {mode} mode, first {r['rounds']} "
+                f"rounds: kernel {r['kernel_ms']:.3f} ms device, plain "
+                f"fused drain {r['plain_ms']:.1f} ms device, equal to "
+                f"{r['held_against']} bit for bit; bound "
+                f"{1e3 * r['bound_bytes'] / HBM_BYTES_PER_S:.4f} ms  "
+                f"[{card}]")
+    from repro_torch.graph import rmat
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    for algo in ("bfs", "coloring"):
+        params = ({"source": int(torch.argmax(small.degrees()))}
+                  if algo == "bfs" else None)
+        cfg_k = algo_config("fused.megakernel", workers=256)
+        carry_k, rows_k = traced_rows(algo, small, cfg_k, params)
+        carry_t, rows_t = traced_rows(algo, small, algo_config(
+            "fused.megakernel", workers=256, backend="torch"), params)
+        same_or_raise(f"rmat({small_scale}) {algo} fused traced kernel vs "
+                      f"plain", carry_k, carry_t)
+        log(f"    rmat({small_scale}) {algo} fused.megakernel traced: the "
+            f"kernel equals the plain fused drain bit for bit, "
+            f"{len(rows_k)} rows included")
+    out["first_rounds"] = {k: {kk: vv for kk, vv in v.items()
+                               if kk != "carry"} for k, v in first.items()}
     return out
 
 
@@ -2056,6 +2516,15 @@ def main() -> int:
             "pagerank": wide_pagerank(graph, grid, card,
                                       min(args.scale, 14)),
             "coloring": wide_coloring(graph, card, min(args.scale, 14))}
+    log(f"[4f] the fused topology and the traced drains: BFS "
+        f"fused.persistent, each program's fused.megakernel (g1, g2) and "
+        f"traced megakernel as one launch of its drain kernel's fused or "
+        f"traced mode, on rmat({args.scale}) and grid2d({side},{side})")
+    fused = fused_and_traced(graph, grid, source, want, want_grid, mega, pr,
+                             col, (state, stats, info), card,
+                             min(args.scale, 14))
+    for path in (pr, col):
+        path.pop("carry")
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -2160,11 +2629,12 @@ def main() -> int:
     held = {}
     mega_dev_ms, mega_rows = device_profile(
         lambda: held.update(secs=drain(graph, cfg_mega, source)[3]))
-    b3_ms = kernel_device_ms(mega_rows, "bfs_drain")
     b3_event_ms = cuda_ms(lambda: drive("bfs", graph, cfg_mega,
                                         {"source": source}),
                           reps=3, warmup=1)
-    b3_timed_by = "profiler device time"
+    b3_ms, b3_timed_by = kernel_device_ms(
+        mega_rows, "bfs_drain", b3_event_ms,
+        "CUDA events around the whole drive, setup included")
     held_t = {}
     plain_dev_ms, plain_rows = device_profile(
         lambda: held_t.update(out=drain(graph, cfg_mega_plain, source)))
@@ -2402,6 +2872,45 @@ def main() -> int:
             "busy_share": main_cell["timing"]["busy_share"],
             "rounds": main_cell["info"]["rounds"],
             "shape": f"rmat({args.scale}) drain, W=4096, g4"})
+    drain_bound_bytes = {"bfs_drain": bfs_bytes(mega["units"], mega["carry"]),
+                         "pagerank_drain": pr["drain_bound_ms"] * 1e-3
+                         * HBM_BYTES_PER_S,
+                         "coloring_drain": col["drain_bound_ms"] * 1e-3
+                         * HBM_BYTES_PER_S}
+    for algo, name in DRAINS.items():
+        mode_times = fused["timing"][algo]
+        for mode, run in (("fused", mode_times["fused"]),
+                          ("traced", mode_times["single_traced"])):
+            first = fused["first_rounds"][f"{algo}.{mode}"]
+            rows = (ROW_BYTES * mode_times["rounds"] if mode == "traced"
+                    else 0)
+            kernels.append({
+                "name": f"{name}.{mode}", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": "src/repro/kernels/drain_loop/kernel.py:82",
+                "launches": run["launches"],
+                "bit_equal": first["max_abs_err"] == 0,
+                "max_abs_err": first["max_abs_err"],
+                "tolerance": f"bitwise against {first['held_against']} "
+                             f"over these rounds, and against "
+                             f"single.megakernel (untraced) over the whole "
+                             f"drain",
+                "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": 1e3 * first["bound_bytes"] / HBM_BYTES_PER_S,
+                "bound_by": "bytes", "library_ms": None,
+                "timed_by": first["timed_by"],
+                "timed_over": f"the first {first['rounds']} rounds of the "
+                              f"rmat({args.scale}) drain",
+                "drain_ms": run["kernel_ms"],
+                "single_drain_ms": mode_times["single"]["kernel_ms"],
+                "drain_bound_ms": 1e3 * (drain_bound_bytes[name] + rows)
+                / HBM_BYTES_PER_S,
+                "rounds": mode_times["rounds"],
+                "shape": f"rmat({args.scale}) drain, W={cfg.wavefront}, g1, "
+                         + ("fused.megakernel (packed lane)"
+                            if mode == "fused" else
+                            f"single.megakernel with a "
+                            f"[{TRACE_CAPACITY}, 13] trace ring")})
     timed_alone = ("lbs", "compact", "csr_stream", "ordered_scatter_add")
     for kern in (k for k in kernels if k["name"] in timed_alone):
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
@@ -2437,6 +2946,7 @@ def main() -> int:
         "pagerank": pr,
         "coloring": col,
         "wide": wide,
+        "fused_traced": fused,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

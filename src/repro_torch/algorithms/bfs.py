@@ -227,15 +227,15 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 def bfs_speculative(graph: CSRGraph, source: int, cfg: SchedulerConfig,
                     strategy: str = "merge_path",
                     work_budget: int | None = None,
-                    queue_capacity: int | None = None
-                    ) -> Tuple[torch.Tensor, dict]:
+                    queue_capacity: int | None = None,
+                    trace=None) -> Tuple[torch.Tensor, dict]:
     """Relaxed-barrier BFS on the Atos scheduler: a thin driver over
-    :func:`repro_torch.runtime.execute`."""
+    :func:`repro_torch.runtime.execute`, which takes ``trace``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity,
                            source=source, strategy=strategy,
                            work_budget=work_budget)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity)
+                             queue_capacity=queue_capacity, trace=trace)
     return state.dist, info

@@ -142,10 +142,11 @@ def _edge_expansion(graph: CSRGraph, rows: torch.Tensor) -> Expansion:
 
 
 def coloring_bsp(graph: CSRGraph, max_iters: int = 10000,
-                 backend: str = "auto") -> Tuple[torch.Tensor, dict]:
+                 backend: str = "auto", trace: list | None = None
+                 ) -> Tuple[torch.Tensor, dict]:
     """Alg 5: assign-all / barrier / detect-all, in the flat form over all
-    m edges.  The reference's per-iteration ``trace`` list comes with
-    ROADMAP A10."""
+    m edges.  ``trace``, if given, receives each iteration's frontier
+    size."""
     n = graph.num_vertices
     vids = torch.arange(n, dtype=_I32, device=graph.device)
     deg = graph.degrees()
@@ -161,6 +162,8 @@ def coloring_bsp(graph: CSRGraph, max_iters: int = 10000,
                               _edge_expansion(graph, frontier))
         work += fsize
         iters += 1
+        if trace is not None:
+            trace.append(fsize)
     return colors, {"iters": iters, "work": work}
 
 
@@ -296,15 +299,16 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
 
 def coloring_async(graph: CSRGraph, cfg: SchedulerConfig,
-                   queue_capacity: int | None = None
+                   queue_capacity: int | None = None, trace=None
                    ) -> Tuple[torch.Tensor, dict]:
     """Alg 6: the fused assign/detect body on the Atos queue, a thin
-    driver over :func:`repro_torch.runtime.execute`."""
+    driver over :func:`repro_torch.runtime.execute`, which takes
+    ``trace``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity)
+                             queue_capacity=queue_capacity, trace=trace)
     return state.colors, info
 
 

@@ -108,9 +108,10 @@ def _push_wavefront(graph: CSRGraph, damping: float, work_budget: int,
 
 # --------------------------------------------------------------------- BSP
 def pagerank_bsp(graph: CSRGraph, damping: float = 0.85, eps: float = 1e-6,
-                 max_iters: int = 1000) -> Tuple[torch.Tensor, dict]:
+                 max_iters: int = 1000, trace: list | None = None
+                 ) -> Tuple[torch.Tensor, dict]:
     """Alg 3: process the whole frontier (all residues > eps) per sweep.
-    The reference's per-sweep ``trace`` list comes with ROADMAP A10."""
+    ``trace``, if given, receives each sweep's active vertex count."""
     n = graph.num_vertices
     deg = torch.clamp(graph.degrees(), min=1).to(_F32)
     # the reference's sweep is jitted with the degrees as a constant, and
@@ -128,8 +129,11 @@ def pagerank_bsp(graph: CSRGraph, damping: float = 0.85, eps: float = 1e-6,
         residue = torch.where(active, 0.0, residue)
         contrib_per_v = damping * res * inv_deg
         residue = ordered_scatter_add(residue, cols, contrib_per_v[edge_src])
-        work += int(active.sum())
+        nactive = int(active.sum())
+        work += nactive
         iters += 1
+        if trace is not None:
+            trace.append(nactive)
     return rank, {"iters": iters, "work": work}
 
 
@@ -321,17 +325,17 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 def pagerank_async(graph: CSRGraph, cfg: SchedulerConfig,
                    damping: float = 0.85, eps: float = 1e-6,
                    check_size: int = 64, work_budget: int | None = None,
-                   queue_capacity: int | None = None
+                   queue_capacity: int | None = None, trace=None
                    ) -> Tuple[torch.Tensor, dict]:
     """Alg 4: queue-driven asynchronous PageRank, a thin driver over
     :func:`repro_torch.runtime.execute`; ``info["max_residue"]`` is the
-    largest residue left."""
+    largest residue left; ``trace`` goes to ``execute``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity,
                            damping=damping, eps=eps, check_size=check_size,
                            work_budget=work_budget)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity)
+                             queue_capacity=queue_capacity, trace=trace)
     info["max_residue"] = float(state.residue.max())
     return state.rank, info

@@ -1,7 +1,8 @@
 """Atos core: wavefront task queue, schedulers, chunk tasks, expansion."""
 from .backend import (BACKENDS, STREAM, STREAM_TORCH, has_cuda,
                       resolve_backend, resolve_device)
-from .queue import EMPTY, TaskQueue, make_queue
+from .queue import (EMPTY, MultiQueue, TaskQueue, make_multiqueue,
+                    make_queue)
 from .scheduler import (QueueOps, RunStats, SchedulerConfig, continuation,
                         discrete_drive, megakernel_drive, megakernel_segment,
                         no_host_sync, persistent_drive, taskqueue_ops,
@@ -16,7 +17,7 @@ from .counters import WorkCounter, overwork_ratio
 __all__ = [
     "BACKENDS", "STREAM", "STREAM_TORCH", "has_cuda", "resolve_backend",
     "resolve_device",
-    "EMPTY", "TaskQueue", "make_queue",
+    "EMPTY", "MultiQueue", "TaskQueue", "make_multiqueue", "make_queue",
     "QueueOps", "RunStats", "SchedulerConfig", "continuation",
     "discrete_drive", "megakernel_drive", "megakernel_segment",
     "no_host_sync", "persistent_drive", "taskqueue_ops",

@@ -11,9 +11,11 @@ of int32 task ids where
     compaction kernel (``kernels/queue_compact``); the queue is
     bit-identical either way.
 
+``MultiQueue`` stacks independent lanes with a round-robin pop pointer:
+the fused topology's queue (one packed lane, ``runtime.api``).
+
 Every operation returns a new queue and leaves its operands untouched, as
-the reference's pytrees do.  ``MultiQueue`` comes with the fused-topology
-slice.
+the reference's pytrees do.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Tuple
 import torch
 
 from .backend import resolve_backend, resolve_device
+from .tree import tree_map
 
 EMPTY = -(2 ** 31)  # sentinel for "no item"
 
@@ -160,3 +163,123 @@ def make_queue(capacity: int, init_items=None, device="cuda") -> TaskQueue:
     if init_items is not None:
         q = q.push_dense(torch.as_tensor(init_items, dtype=_I32, device=device))
     return q
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiQueue:
+    """``num_lanes`` independent ring buffers with a round-robin pop pointer.
+
+    ``lanes`` is a TaskQueue whose buffer is ``[L, capacity]`` and whose
+    cursors are ``[L]``.  Pops rotate across non-empty lanes; pushes name a
+    lane.  A lane id is a Python int or a one-element (or 0-dim) tensor; a
+    tensor id is read with ``index_select``, never with ``x[t]``, which
+    would read the id on the host.
+    """
+
+    lanes: TaskQueue      # stacked: buf [L, capacity], cursors [L]
+    rr: torch.Tensor      # 0-dim int32 round-robin pointer
+
+    @property
+    def num_lanes(self) -> int:
+        return self.lanes.buf.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.lanes.buf.shape[1]
+
+    @property
+    def size(self) -> torch.Tensor:
+        return (self.lanes.tail - self.lanes.head).sum(dtype=_I32)
+
+    def empty(self) -> torch.Tensor:
+        return self.size == 0
+
+    # -------------------------------------------------------- lane plumbing
+    def _index(self, lane_id) -> torch.Tensor:
+        if isinstance(lane_id, torch.Tensor):
+            return lane_id.reshape(1).long()
+        return torch.full((1,), int(lane_id), dtype=torch.long,
+                          device=self.lanes.buf.device)
+
+    def lane(self, lane_id) -> TaskQueue:
+        """View of a single lane as a standalone ``TaskQueue``."""
+        if isinstance(lane_id, torch.Tensor):
+            idx = self._index(lane_id)
+            return tree_map(lambda x: x.index_select(0, idx)[0], self.lanes)
+        return tree_map(lambda x: x[int(lane_id)], self.lanes)
+
+    def with_lane(self, lane_id, lane: TaskQueue) -> "MultiQueue":
+        """Write a (possibly updated) lane back into the stack.  A one-lane
+        stack is the lane itself, with no copy."""
+        if self.num_lanes == 1:
+            lanes = tree_map(lambda new: new.unsqueeze(0), lane)
+        else:
+            idx = self._index(lane_id)
+            lanes = tree_map(
+                lambda full, new: full.index_copy(0, idx, new.unsqueeze(0)),
+                self.lanes, lane)
+        return dataclasses.replace(self, lanes=lanes)
+
+    def reset_lane(self, lane_id) -> "MultiQueue":
+        """Recycle a lane for a new tenant: empty buffer, zeroed cursors."""
+        return self.with_lane(lane_id, make_queue(
+            self.capacity, device=self.lanes.buf.device))
+
+    def lane_sizes(self) -> torch.Tensor:
+        return self.lanes.tail - self.lanes.head
+
+    def lane_loads(self, width_of=None) -> torch.Tensor:
+        """Per-lane occupancy in vertices (chunk-width weighted);
+        ``width_of=None`` is :meth:`lane_sizes`."""
+        if width_of is None:
+            return self.lane_sizes()
+        cap = self.capacity
+        i = torch.arange(cap, dtype=_I32, device=self.lanes.buf.device)[None]
+        live = ((i - self.lanes.head[:, None]) % cap) < \
+            self.lane_sizes()[:, None]
+        w = width_of(self.lanes.buf).to(_I32)
+        return torch.where(live, w, 0).sum(dim=1, dtype=_I32)
+
+    def lane_dropped(self) -> torch.Tensor:
+        return self.lanes.dropped
+
+    # ----------------------------------------------------------------- api
+    def pop(self, n: int) -> Tuple[torch.Tensor, torch.Tensor, "MultiQueue"]:
+        """Pop up to ``n`` items from the next non-empty lane (round robin);
+        the pointer is kept modulo ``num_lanes``."""
+        lanes = self.num_lanes
+        order = (self.rr + torch.arange(lanes, dtype=_I32,
+                                        device=self.rr.device)) % lanes
+        nonempty = self.lane_sizes()[order.long()] > 0
+        # the first non-empty lane in rr order, as a one-element tensor
+        pick = order.index_select(0, torch.argmax(nonempty.to(_I32))
+                                  .reshape(1))
+        items, valid, lane2 = self.lane(pick).pop(n)
+        return items, valid, dataclasses.replace(
+            self.with_lane(pick, lane2), rr=((pick + 1) % lanes).reshape(()))
+
+    def pop_lane(self, lane_id, n: int, quota=None, width_of=None):
+        """Pop up to ``quota``'s worth of items from one named lane; the
+        quota counts slots, or vertices with ``width_of`` (see
+        :meth:`TaskQueue.pop_upto`).  The round-robin pointer stays."""
+        items, valid, lane2 = self.lane(lane_id).pop_upto(
+            n, n if quota is None else quota, width_of=width_of)
+        return items, valid, self.with_lane(lane_id, lane2)
+
+    def push(self, lane_id, items: torch.Tensor, mask: torch.Tensor,
+             backend: str = "auto") -> "MultiQueue":
+        return self.with_lane(
+            lane_id, self.lane(lane_id).push(items, mask, backend=backend))
+
+
+def make_multiqueue(capacity: int, num_lanes: int,
+                    device="cuda") -> MultiQueue:
+    """``num_lanes`` empty lanes of ``capacity`` on ``device``."""
+    device = resolve_device(device)
+    zeros = torch.zeros((num_lanes,), dtype=_I32, device=device)
+    lanes = TaskQueue(
+        buf=torch.full((num_lanes, capacity), EMPTY, dtype=_I32,
+                       device=device),
+        head=zeros, tail=zeros.clone(), dropped=zeros.clone())
+    return MultiQueue(lanes=lanes,
+                      rr=torch.zeros((), dtype=_I32, device=device))

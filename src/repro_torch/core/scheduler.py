@@ -58,12 +58,12 @@ class SchedulerConfig:
     The fields and their meaning are the reference's; see
     ``repro/core/scheduler.SchedulerConfig``.  ``backend`` is the port's
     axis (``"torch" | "cuda" | "auto"``, core/backend.py) and defaults to
-    ``"auto"``.  The port executes the ``single`` topology under the
-    ``persistent``, ``discrete`` and ``megakernel`` strategies; the
-    topology and kernel fields take every value of the policy matrix, and
-    ``runtime.execute`` names the ROADMAP item of each cell it cannot run
-    yet.  The sharded topology's exchange and stealing fields come with
-    its slice.
+    ``"auto"``.  The port executes the ``single`` and ``fused``
+    topologies under the ``persistent``, ``discrete`` and ``megakernel``
+    strategies; the topology and kernel fields take every value of the
+    policy matrix, and ``runtime.execute`` names the ROADMAP item of each
+    cell it cannot run yet.  The sharded topology's exchange and stealing
+    fields come with its slice.
     """
 
     num_workers: int = 64        # numBlock: parallel workers per wavefront
@@ -199,14 +199,24 @@ def megakernel_segment(step, cond, example_carry, *, kernel=None):
     return make_megakernel_segment(step, cond, example_carry, kernel=kernel)
 
 
-def discrete_drive(step, cond, carry0):
+def discrete_drive(step, cond, carry0, *, ops: QueueOps | None = None,
+                   trace=None):
     """Host loop, one round per iteration (discrete kernels).
 
     The continuation flag is computed with the round, so each round costs
-    one scalar device->host read, as in the reference.  The reference's
-    per-round ``trace`` list comes with the observability slice.
+    one scalar device->host read, as in the reference.  ``trace``, if
+    given (with the drain's ``ops``), collects per-round
+    ``(queue_size_before_pop, items_processed)`` pairs -- the reference's
+    legacy list, at the price of two more host reads a round.
     """
+    if trace is not None and ops is None:
+        raise ValueError("a discrete trace list needs the drain's ops")
     carry = carry0
+    prev_processed = 0
     while bool(cond(carry)):  # the one per-round device->host sync
+        size_before = int(ops.size(carry[0])) if trace is not None else 0
         carry = step(carry)
+        if trace is not None:
+            trace.append((size_before, int(carry[3]) - prev_processed))
+            prev_processed = int(carry[3])
     return carry

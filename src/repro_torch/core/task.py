@@ -65,6 +65,13 @@ class ChunkCodec:
     def decode(self, task: torch.Tensor):
         return self.head(task), self.width(task)
 
+    def max_code(self, num_vertices: int) -> int:
+        """Largest chunk code a graph of ``num_vertices`` can produce: the
+        admission bound of the packed lane encoding."""
+        if num_vertices <= 0:
+            return 0
+        return ((num_vertices - 1) << self.width_bits) | self.width_mask
+
 
 def coalesce_chunks(vids: torch.Tensor, mask: torch.Tensor, codec: ChunkCodec,
                     row_ptr: torch.Tensor, *, split_threshold=None):

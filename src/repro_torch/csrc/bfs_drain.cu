@@ -71,6 +71,14 @@
 // (the ring, the dedup words, the windows, the push counts) are read with
 // ld.global.cg, past the SM's incoherent L1.
 //
+// Modes.  The fused mode (B3-fused) drains lane 0 of the fused topology's
+// one-lane MultiQueue: a popped word is unpacked to its task and a pushed
+// task packed with job 0 (drain_common.cuh's lane_load / lane_store), which
+// is what runtime/api.fused_lane_ops does around the same body.  The traced
+// mode (B3-traced) writes one trace row a round from block 0 after the
+// round's last barrier (drain_common.cuh's Tracer).  Each mode is a
+// template argument, so the single, untraced instances are unchanged.
+//
 // What bounds the drain on an H100: bytes, about 8 bytes per expanded edge
 // (its col_idx word and dist[nbr]) plus the ring traffic, and the grid
 // barriers.  The first form keeps it simple: the kernel is right first, and
@@ -111,6 +119,7 @@ struct Drain {
   int* wave_global;  // [gridDim.x][2 W] when the wavefront does not fit in
                      // shared memory, else null
   long long* units;  // out: work units expanded through the stream
+  TraceRing trace;   // the traced mode's ring
 };
 
 struct Unit {
@@ -119,8 +128,9 @@ struct Unit {
 };
 
 // kChunks = false is the G = 1 instance, whose codec is the compile-time
-// identity: no multiplication or division by G, no window code.
-template <bool kChunks>
+// identity: no multiplication or division by G, no window code.  kPacked is
+// the fused mode, kTraced the traced mode.
+template <bool kChunks, bool kPacked, bool kTraced>
 __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
   extern __shared__ int dyn[];
   __shared__ int ring[csr_stream::kStages][kThreads];
@@ -143,6 +153,8 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
   const int splits = d.cursors[kSplits];
   int counter_rounds = d.cursors[kCounterRounds];
   const int limit = d.cursors[kLimit];
+  Tracer<kTraced> tracer;
+  tracer.begin(d.trace);
   // every block has read the cursors before block 0 may write them back
   grid_barrier(d.barrier);
 
@@ -160,7 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
       int item = kEmpty;
       int deg = 0;
       if (l < k) {
-        item = __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap));
+        item = lane_load<kPacked>(
+            __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap)));
         deg = chunk_degree(d.row_ptr, chunk_head(item, cc),
                            chunk_width(item, cc), d.n);
       }
@@ -299,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
     // 8. the ring write at tail + rank
     const int head_after = wrap_add(head, k);
     const int free_slots = d.cap - wrap_sub(tail, head_after);
-    const int count = ring_push<kThreads>(
+    const int count = ring_push<kThreads, kPacked>(
         d.buf, d.cap, tail, free_slots, d.block_count, lo, hi, warp_sums,
         [&](int p, int& value) {
           if (p < L) {
@@ -320,6 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
 
     // 9. cursors and counters, the same in every block
     const int pushed = count < free_slots ? count : free_slots;
+    tracer.record(d.trace, kChunks ? d.win.splits : nullptr, rounds, size,
+                  k, pushed, round_work);
     dropped = wrap_add(dropped, wrap_sub(count, pushed));
     tail = wrap_add(tail, pushed);
     head = head_after;
@@ -341,39 +356,57 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
     d.cursors[kCounterRounds] = counter_rounds;
     *d.units = units;
   }
+  tracer.end(d.trace);
 }
 
-// The launch plan for a wavefront of W at granularity G: dynamic shared
-// memory (0 when the wavefront goes to global scratch) and the co-resident
-// grid of that granularity's instance.
-const void* kernel_for(int granularity) {
-  return granularity > 1 ? reinterpret_cast<const void*>(bfs_drain<true>)
-                         : reinterpret_cast<const void*>(bfs_drain<false>);
+// The instance of a granularity and mode.
+template <bool kChunks, bool kPacked>
+const void* instance(bool traced) {
+  return traced
+             ? reinterpret_cast<const void*>(bfs_drain<kChunks, kPacked, true>)
+             : reinterpret_cast<const void*>(
+                   bfs_drain<kChunks, kPacked, false>);
 }
 
-cudaError_t plan(int W, int granularity, size_t* dyn, int* grid) {
+const void* kernel_for(int granularity, bool packed, bool traced) {
+  if (granularity > 1) {
+    return packed ? instance<true, true>(traced)
+                  : instance<true, false>(traced);
+  }
+  return packed ? instance<false, true>(traced)
+                : instance<false, false>(traced);
+}
+
+// The launch plan for a wavefront of W at granularity G in a mode: dynamic
+// shared memory (0 when the wavefront goes to global scratch) and the
+// co-resident grid of that instance.
+cudaError_t plan(int W, int granularity, bool packed, bool traced, size_t* dyn,
+                 int* grid) {
+  const void* kernel = kernel_for(granularity, packed, traced);
   DeviceInfo info;
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel_for(granularity));
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   const size_t wave = 2 * static_cast<size_t>(W) * sizeof(int);
   *dyn = wave + attr.sharedSizeBytes <= static_cast<size_t>(info.smem_optin)
              ? wave
              : 0;
-  return cooperative_grid(kernel_for(granularity), kThreads, *dyn, grid);
+  return cooperative_grid(kernel, kThreads, *dyn, grid);
 }
 
 }  // namespace
 
-// The grid the launch takes for a wavefront of W at granularity G, and
-// whether the wavefront lives in shared memory (1) or in global scratch of
-// grid * 2 W ints (0).  Returns the cudaError_t (0 on success).
-extern "C" int bfs_drain_grid(int wavefront, int granularity, int* grid,
-                                 int* wave_in_shared) {
+// The grid the launch takes for a wavefront of W at granularity G in a mode
+// (packed: the fused mode; traced: the traced mode), and whether the
+// wavefront lives in shared memory (1) or in global scratch of grid * 2 W
+// ints (0).  Returns the cudaError_t (0 on success).
+extern "C" int bfs_drain_grid(int wavefront, int granularity, int packed,
+                              int traced, int* grid, int* wave_in_shared) {
   size_t dyn = 0;
-  const cudaError_t err = plan(wavefront, granularity, &dyn, grid);
+  const cudaError_t err =
+      plan(wavefront, granularity, packed != 0, traced != 0, &dyn, grid);
   if (err != cudaSuccess) return err;
   *wave_in_shared = dyn > 0;
   return cudaSuccess;
@@ -386,8 +419,10 @@ extern "C" int bfs_drain_grid(int wavefront, int granularity, int* grid,
 // ones each; windows: 3 (n / G + 2) zeroed words, then one zeroed split
 // count; block_count: grid ints; barrier: 2 zeroed words; units: one word,
 // which gets the number of work units the drain expanded).  `threshold` is
-// the split threshold (INT_MAX for none).  Returns the cudaError_t of the
-// launch (0 on success).
+// the split threshold (INT_MAX for none).  `packed` selects the fused mode
+// (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
+// mode, with its [trace_capacity][13] rows and one-int cursor, both updated
+// in place.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int bfs_drain_launch(
     int* buf, int cap, int* dist, int n, const int* row_ptr,
     const int* col_idx, int m, int* cursors, int wavefront, int budget,
@@ -395,11 +430,17 @@ extern "C" int bfs_drain_launch(
     int threshold, int* unit_nbr, unsigned long long* first_unit,
     unsigned long long* best, unsigned long long* windows,
     unsigned int* splits, int* block_count, unsigned int* barrier,
-    int* wave_global, long long* units, int grid, cudaStream_t stream) {
+    int* wave_global, long long* units, int packed, int* trace,
+    int trace_capacity, int* trace_cursor, int grid, cudaStream_t stream) {
   size_t dyn = 0;
   int most = 0;
+  const bool traced = trace != nullptr;
   if (granularity < 1 || granularity > 64) return cudaErrorInvalidValue;
-  cudaError_t err = plan(wavefront, granularity, &dyn, &most);
+  if (traced && (trace_capacity < 1 || trace_cursor == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err =
+      plan(wavefront, granularity, packed != 0, traced, &dyn, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorInvalidValue;
   if ((dyn == 0) != (wave_global != nullptr)) return cudaErrorInvalidValue;
@@ -427,9 +468,11 @@ extern "C" int bfs_drain_launch(
   d.barrier = barrier;
   d.wave_global = wave_global;
   d.units = units;
+  d.trace = TraceRing{trace, trace_capacity, trace_cursor};
   void* args[] = {&d};
-  err = cudaLaunchCooperativeKernel(kernel_for(granularity), dim3(grid),
-                                    dim3(kThreads), args, dyn, stream);
+  err = cudaLaunchCooperativeKernel(
+      kernel_for(granularity, packed != 0, traced), dim3(grid),
+      dim3(kThreads), args, dyn, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -41,6 +41,14 @@
 // after the push counts and after the ring write.  Structure, barriers and
 // the push are drain_common.cuh's.
 //
+// Modes.  The fused mode (B3-fused) drains lane 0 of the fused topology's
+// one-lane MultiQueue: a popped word is unpacked to its task and a pushed
+// task packed with job 0 (drain_common.cuh's lane_load / lane_store), which
+// is what runtime/api.fused_lane_ops does around the same body.  The traced
+// mode (B3-traced) writes one trace row a round from block 0 after the
+// round's last barrier (drain_common.cuh's Tracer).  Each mode is a
+// template argument, so the single, untraced instances are unchanged.
+//
 // What bounds the drain on an H100: bytes, 8 per neighbor visited (its
 // col_idx word and its color) for every assign and every detect, and the
 // barriers.  Right first, fast later.
@@ -76,6 +84,7 @@ struct Drain {
   int* wave_global;  // [gridDim.x][W (1 + G)] when the wavefront and its
                      // vertex degrees do not fit in shared memory, else null
   long long* visits;  // out: neighbors visited by the picks and detects
+  TraceRing trace;    // the traced mode's ring
 };
 
 // The reference's uint32 priority hash.
@@ -107,8 +116,9 @@ __device__ __forceinline__ int code_of(int item) {
 
 // Two blocks an SM where shared memory allows: at most 64 registers a
 // thread.  kChunks = false is the G = 1 instance, whose codec is the
-// compile-time identity: no division by G, no window code.
-template <bool kChunks>
+// compile-time identity: no division by G, no window code.  kPacked is the
+// fused mode, kTraced the traced mode.
+template <bool kChunks, bool kPacked, bool kTraced>
 __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   extern __shared__ int dyn[];
   __shared__ unsigned warp_bits[kWarps][32];
@@ -144,6 +154,8 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   const int splits = d.cursors[kSplits];
   int counter_rounds = d.cursors[kCounterRounds];
   const int limit = d.cursors[kLimit];
+  Tracer<kTraced> tracer;
+  tracer.begin(d.trace);
   // every block has read the cursors before block 0 may write them back
   grid_barrier(d.barrier);
 
@@ -170,7 +182,8 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
     for (int l = l0; l < l1; ++l) {
       int item = kEmpty;
       if (l < k) {
-        item = __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap));
+        item = lane_load<kPacked>(
+            __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap)));
         if (item > 0) assign_local += chunk_width(code_of(item), cc);
       }
       items[l] = item;
@@ -346,7 +359,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
 
     const int head_after = wrap_add(head, k);
     const int free_slots = d.cap - wrap_sub(tail, head_after);
-    const int count = ring_push<kThreads>(
+    const int count = ring_push<kThreads, kPacked>(
         d.buf, d.cap, tail, free_slots, d.block_count, lo, hi, warp_sums,
         [&](int p, int& value) {
           if (p < k) {
@@ -361,6 +374,8 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
 
     // 6. cursors and counters, the same in every block
     const int pushed = count < free_slots ? count : free_slots;
+    tracer.record(d.trace, kChunks ? d.win.splits : nullptr, rounds, size,
+                  k, pushed, n_assign);
     dropped = wrap_add(dropped, wrap_sub(count, pushed));
     tail = wrap_add(tail, pushed);
     head = head_after;
@@ -385,25 +400,40 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
         wrap_add(splits, static_cast<int>(__ldcg(d.win.splits)));
     d.cursors[kCounterRounds] = counter_rounds;
   }
+  tracer.end(d.trace);
+}
+
+// The instance of a granularity and mode.
+template <bool kChunks, bool kPacked>
+const void* instance(bool traced) {
+  return traced ? reinterpret_cast<const void*>(
+                      coloring_drain<kChunks, kPacked, true>)
+                : reinterpret_cast<const void*>(
+                      coloring_drain<kChunks, kPacked, false>);
+}
+
+const void* kernel_for(int granularity, bool packed, bool traced) {
+  if (granularity > 1) {
+    return packed ? instance<true, true>(traced)
+                  : instance<true, false>(traced);
+  }
+  return packed ? instance<false, true>(traced)
+                : instance<false, false>(traced);
 }
 
 // The launch plan for a wavefront of W chunks of up to G vertices and a
-// block bitset of `big_words`: dynamic shared memory and the co-resident
-// grid.  The wavefront and its vertex lanes' degrees go to global scratch
-// when they and the bitset do not fit in shared memory; a bitset that does
-// not fit alone is refused.
-const void* kernel_for(int granularity) {
-  return granularity > 1 ? reinterpret_cast<const void*>(coloring_drain<true>)
-                         : reinterpret_cast<const void*>(coloring_drain<false>);
-}
-
-cudaError_t plan(int W, int granularity, int big_words, size_t* dyn,
-                 bool* wave_shared, int* grid) {
+// block bitset of `big_words` in a mode: dynamic shared memory and the
+// co-resident grid.  The wavefront and its vertex lanes' degrees go to
+// global scratch when they and the bitset do not fit in shared memory; a
+// bitset that does not fit alone is refused.
+cudaError_t plan(int W, int granularity, bool packed, bool traced,
+                 int big_words, size_t* dyn, bool* wave_shared, int* grid) {
+  const void* kernel = kernel_for(granularity, packed, traced);
   DeviceInfo info;
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel_for(granularity));
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   const size_t optin = static_cast<size_t>(info.smem_optin);
   const size_t bits = static_cast<size_t>(big_words) * sizeof(unsigned);
@@ -412,22 +442,24 @@ cudaError_t plan(int W, int granularity, int big_words, size_t* dyn,
   if (bits + attr.sharedSizeBytes > optin) return cudaErrorInvalidValue;
   *wave_shared = wave + bits + attr.sharedSizeBytes <= optin;
   *dyn = (*wave_shared ? wave : 0) + bits;
-  return cooperative_grid(kernel_for(granularity), kThreads, *dyn, grid);
+  return cooperative_grid(kernel, kThreads, *dyn, grid);
 }
 
 }  // namespace
 
 // The grid the launch takes for a wavefront of W chunks of up to G
-// vertices and a graph whose largest degree is max_degree, and whether the
+// vertices and a graph whose largest degree is max_degree, in a mode
+// (packed: the fused mode; traced: the traced mode), and whether the
 // wavefront lives in shared memory (1) or in global scratch of grid * W
 // (1 + G) ints (0).  Returns the cudaError_t (0 on success).
 extern "C" int coloring_drain_grid(int wavefront, int granularity,
-                                   int max_degree, int* grid,
-                                   int* wave_in_shared) {
+                                   int max_degree, int packed, int traced,
+                                   int* grid, int* wave_in_shared) {
   size_t dyn = 0;
   bool shared = false;
-  const cudaError_t err = plan(wavefront, granularity, (max_degree + 32) / 32,
-                               &dyn, &shared, grid);
+  const cudaError_t err =
+      plan(wavefront, granularity, packed != 0, traced != 0,
+           (max_degree + 32) / 32, &dyn, &shared, grid);
   if (err != cudaSuccess) return err;
   *wave_in_shared = shared;
   return cudaSuccess;
@@ -439,6 +471,10 @@ extern "C" int coloring_drain_grid(int wavefront, int granularity,
 // then one zeroed split count; block_count grid ints; barrier 2 zeroed
 // words; visits one zeroed word, which gets the neighbors the picks and
 // detects visited.  `threshold` is the split threshold (INT_MAX for none).
+// `packed` selects the fused mode
+// (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
+// mode, with its [trace_capacity][13] rows and one-int cursor, both updated
+// in place.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int coloring_drain_launch(
     int* buf, int cap, int* colors, int n, const int* row_ptr,
@@ -446,14 +482,19 @@ extern "C" int coloring_drain_launch(
     int max_degree, int granularity, int width_bits, int threshold,
     int* pick, int* bad, unsigned long long* windows, unsigned int* splits,
     int* block_count, unsigned int* barrier, int* wave_global,
-    long long* visits, int grid, cudaStream_t stream) {
+    long long* visits, int packed, int* trace, int trace_capacity,
+    int* trace_cursor, int grid, cudaStream_t stream) {
+  const bool traced = trace != nullptr;
   if (granularity < 1 || granularity > 64) return cudaErrorInvalidValue;
+  if (traced && (trace_capacity < 1 || trace_cursor == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const int big_words = (max_degree + 32) / 32;
   size_t dyn = 0;
   bool shared = false;
   int most = 0;
-  cudaError_t err =
-      plan(wavefront, granularity, big_words, &dyn, &shared, &most);
+  cudaError_t err = plan(wavefront, granularity, packed != 0, traced,
+                         big_words, &dyn, &shared, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorInvalidValue;
   if (shared != (wave_global == nullptr)) return cudaErrorInvalidValue;
@@ -477,9 +518,11 @@ extern "C" int coloring_drain_launch(
   d.barrier = barrier;
   d.wave_global = wave_global;
   d.visits = visits;
+  d.trace = TraceRing{trace, trace_capacity, trace_cursor};
   void* args[] = {&d};
-  err = cudaLaunchCooperativeKernel(kernel_for(granularity), dim3(grid),
-                                    dim3(kThreads), args, dyn, stream);
+  err = cudaLaunchCooperativeKernel(
+      kernel_for(granularity, packed != 0, traced), dim3(grid),
+      dim3(kThreads), args, dyn, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

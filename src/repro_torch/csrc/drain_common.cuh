@@ -21,6 +21,13 @@
 //     ranks from prefix sums (never an atomic ticket), so the ring is
 //     bit-identical to TaskQueue.push; what exceeds the free slots is
 //     dropped;
+//   * the fused mode (B3-fused): the task ring is lane 0 of the fused
+//     topology's MultiQueue, whose words are (job << 24) | zigzag(task)
+//     with job 0 (server/encoding.py); lane_load unpacks a popped word and
+//     lane_store packs a pushed task, the identity in the single mode;
+//   * the traced mode (B3-traced): one row of obs/schema.TRACE_FIELDS a
+//     round into a TraceRing, written by block 0 after the round's last
+//     grid barrier;
 //   * cooperative_grid: the co-resident grid of a kernel;
 //   * chunk tasks (core/task.py): the codec, a chunk's degree, the member
 //     row of a unit (chunk_row_of), and the in-kernel coalesce_chunks over
@@ -199,14 +206,40 @@ __device__ __forceinline__ void block_range(int total, int b, int G, int& lo,
       min(static_cast<long long>(lo) + per, static_cast<long long>(total)));
 }
 
+// ----------------------------------------------------------- packed lanes
+// A fused lane's word is (job << kPayloadBits) | (zigzag(task) & mask), job 0
+// here, as server/encoding.pack writes it; int32 shifts wrap and >> is
+// arithmetic, as torch's are.  A task whose zigzag needs more than 24 bits
+// would not survive: the wrapper's admission (check_job_fits at the
+// config's granularity) keeps every task inside.
+constexpr int kPayloadBits = 24;
+constexpr int kPayloadMask = (1 << kPayloadBits) - 1;
+
+__device__ __forceinline__ int zigzag(int t) {
+  return static_cast<int>(static_cast<unsigned>(t) << 1) ^ (t >> 31);
+}
+
+__device__ __forceinline__ int unzigzag(int z) { return (z >> 1) ^ -(z & 1); }
+
+// The task of a popped ring word, and the ring word of a pushed task.
+template <bool kPacked>
+__device__ __forceinline__ int lane_load(int word) {
+  return kPacked ? unzigzag(word & kPayloadMask) : word;
+}
+
+template <bool kPacked>
+__device__ __forceinline__ int lane_store(int task) {
+  return kPacked ? (zigzag(task) & kPayloadMask) : task;
+}
+
 // The round's push.  Each block has written how many positions of its range
 // [lo, hi) it keeps into block_count[blockIdx.x], and a grid barrier has
 // passed since.  `item(p, value)` says whether position p is kept and sets
-// its value.  Writes the kept values of [lo, hi), in position order, into
-// the ring at tail + (kept positions before them); a write at or past
-// `free_slots` is dropped.  Returns the round's kept count (every block
-// gets it).  Every thread of the block must call it.
-template <int kThreads, class Item>
+// its task.  Writes the kept tasks of [lo, hi), in position order, into the
+// ring at tail + (kept positions before them), packed in the fused mode; a
+// write at or past `free_slots` is dropped.  Returns the round's kept count
+// (every block gets it).  Every thread of the block must call it.
+template <int kThreads, bool kPacked, class Item>
 __device__ int ring_push(int* buf, int cap, int tail, int free_slots,
                          const int* block_count, int lo, int hi,
                          int* warp_sums, Item item) {
@@ -231,7 +264,9 @@ __device__ int ring_push(int* buf, int cap, int tail, int free_slots,
     int tile_total;
     const int r = wrap_add(
         offset, block_exclusive_scan<kThreads>(keep, warp_sums, tile_total));
-    if (keep && r < free_slots) buf[ring_slot(wrap_add(tail, r), cap)] = value;
+    if (keep && r < free_slots) {
+      buf[ring_slot(wrap_add(tail, r), cap)] = lane_store<kPacked>(value);
+    }
     offset = wrap_add(offset, tile_total);
   }
   return count;
@@ -345,6 +380,67 @@ __device__ __forceinline__ int window_emit(const Windows& w, int v, Codec c,
   if (count_split && v == vmn && contiguous && cnt > 1) atomicAdd(w.splits, 1u);
   return chunk_encode(v, 1, c);
 }
+
+// ------------------------------------------------------------ trace ring
+// obs/ring.TraceRing: a [capacity][13] int32 ring of obs/schema.TRACE_FIELDS
+// rows and its monotone cursor.  runtime/api.instrument_step defines the
+// row: round, lane (0), the queue size before the pop, pops, pushes, the
+// WorkCounter's work and splits deltas, and zeros in the sharded columns.
+constexpr int kTraceFields = 13;
+
+struct TraceRing {
+  int* buf;  // [capacity][kTraceFields]; null in an untraced launch
+  int capacity;
+  int* cursor;  // [1] rows ever written, read at launch, written back
+};
+
+// One round's row at cursor % capacity.  Block 0's thread 0 calls it after
+// the round's last grid barrier, from values every block holds.
+__device__ inline void trace_row(const TraceRing& t, int cursor, int round,
+                                 int queue_size, int pops, int pushes,
+                                 int work, int splits) {
+  int* row = t.buf + static_cast<size_t>(py_mod(cursor, t.capacity)) *
+                         kTraceFields;
+  const int values[7] = {round, 0, queue_size, pops, pushes, work, splits};
+  for (int f = 0; f < kTraceFields; ++f) row[f] = f < 7 ? values[f] : 0;
+}
+
+// What the traced mode keeps in block 0's thread 0: the ring cursor and the
+// drain's split count at the last row.  At kTraced = false every call is
+// empty, so an untraced instance holds no ring code.
+template <bool kTraced>
+struct Tracer {
+  int cursor = 0;
+  int splits_seen = 0;
+
+  static __device__ __forceinline__ bool writer() {
+    return kTraced && blockIdx.x == 0 && threadIdx.x == 0;
+  }
+  // At launch, before the first grid barrier.
+  __device__ __forceinline__ void begin(const TraceRing& t) {
+    if (writer()) cursor = *t.cursor;
+  }
+  // After the round's last grid barrier: `splits` is the drain's split
+  // word (its atomics all precede that barrier), or null at G = 1.
+  __device__ __forceinline__ void record(const TraceRing& t,
+                                         const unsigned int* splits,
+                                         int round, int queue_size,
+                                         int pops, int pushes, int work) {
+    if (!writer()) return;
+    int delta = 0;
+    if (splits) {
+      const int now = static_cast<int>(__ldcg(splits));
+      delta = wrap_sub(now, splits_seen);
+      splits_seen = now;
+    }
+    trace_row(t, cursor, round, queue_size, pops, pushes, work, delta);
+    cursor = wrap_add(cursor, 1);
+  }
+  // At the end, with the other cursors.
+  __device__ __forceinline__ void end(const TraceRing& t) {
+    if (writer()) *t.cursor = cursor;
+  }
+};
 
 struct DeviceInfo {
   int sms = 0;

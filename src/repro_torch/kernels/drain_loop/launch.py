@@ -1,7 +1,9 @@
 """What the drain kernels' wrappers share: operand checks, the launch
-plan, the chunk codec's operands and the coalescing windows, and the
-carry's scalars packed into one int32 tensor for the kernel and unpacked
-from it after (``bfs_drain``, ``pagerank_drain``, ``coloring_drain``)."""
+plan, the chunk codec's operands and the coalescing windows, the task ring
+and mode a carry gives (a TaskQueue, or the fused topology's packed lane;
+a trace ring or none), and the carry's scalars packed into one int32
+tensor for the kernel and unpacked from it after (``bfs_drain``,
+``pagerank_drain``, ``coloring_drain``)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,7 +12,10 @@ import dataclasses
 import torch
 
 from ...core.counters import WorkCounter
+from ...core.queue import MultiQueue
 from ...core.task import MAX_GRANULARITY
+from ...obs.ring import TraceRing
+from ...obs.schema import NUM_FIELDS
 from ..build import check_launch
 
 _I32 = torch.int32
@@ -67,11 +72,60 @@ def launch_plan(plan_fn, label: str, device_index: int, *args):
     return grid.value, bool(shared.value)
 
 
+def lane_of(queue) -> tuple:
+    """``(buf, head, tail, dropped, packed)`` of the task ring a drain
+    kernel drains: a TaskQueue's (``packed`` False), or lane 0 of the fused
+    topology's one-lane MultiQueue, whose packed words the kernel's fused
+    mode reads and writes (``packed`` True)."""
+    if isinstance(queue, MultiQueue):
+        if queue.num_lanes != 1:
+            raise ValueError(f"a drain kernel drains one lane; the "
+                             f"MultiQueue has {queue.num_lanes}")
+        lanes = queue.lanes
+        return (lanes.buf[0], lanes.head[0], lanes.tail[0],
+                lanes.dropped[0], True)
+    return queue.buf, queue.head, queue.tail, queue.dropped, False
+
+
+def check_packed(who: str, n: int, granularity: int) -> None:
+    """The fused mode's admission: every task of a graph of ``n`` vertices
+    at this granularity must survive the lane's 24-bit payload."""
+    from ...server.encoding import check_job_fits  # lazy: server->core
+
+    try:
+        check_job_fits(0, n, granularity=granularity)
+    except ValueError as e:
+        raise ValueError(f"{who}: {e}") from None
+
+
+def ring_of(who: str, carry, device):
+    """A copy of the carry's TraceRing (its fifth leaf) for the traced mode
+    to update in place, or None for an untraced carry."""
+    if len(carry) == 4:
+        return None
+    ring = carry[4]
+    check_operand(who, "ring.buf", ring.buf, device)
+    if ring.buf.dim() != 2 or ring.buf.shape[1] != NUM_FIELDS:
+        raise ValueError(f"{who}: a trace ring is [capacity, {NUM_FIELDS}], "
+                         f"got {tuple(ring.buf.shape)}")
+    return TraceRing(buf=ring.buf.clone(),
+                     cursor=ring.cursor.to(device=device, dtype=_I32)
+                     .reshape(()).clone())
+
+
+def ring_args(ring) -> tuple:
+    """The launch's trace operands: rows, capacity, cursor (or none)."""
+    if ring is None:
+        return None, 0, None
+    return ring.buf.data_ptr(), ring.capacity, ring.cursor.data_ptr()
+
+
 def pack_cursors(carry, limit, max_rounds: int, device, *extra):
     """One int32 tensor: the carry's scalars in CURSORS order, the round
     ``limit`` (an int, a 0-dim tensor, or None for ``max_rounds``), then
     ``extra`` 0-dim tensors of the program's own."""
-    queue, state, rounds, processed = carry
+    queue, state, rounds, processed = carry[:4]
+    _, head, tail, dropped, _ = lane_of(queue)
     if limit is None:
         limit = max_rounds
     if not isinstance(limit, torch.Tensor):
@@ -80,22 +134,31 @@ def pack_cursors(carry, limit, max_rounds: int, device, *extra):
     counter = state.counter
     return torch.stack([
         t.to(device=device, dtype=_I32).reshape(())
-        for t in (queue.head, queue.tail, queue.dropped, rounds, processed,
+        for t in (head, tail, dropped, rounds, processed,
                   counter.work, counter.splits, counter.rounds, limit,
                   *extra)])
 
 
 def unpack_carry(carry, buf: torch.Tensor, cursors: torch.Tensor,
-                 extra=(), **state_fields):
+                 extra=(), ring=None, **state_fields):
     """The carry after a launch: the queue with ``buf`` and the kernel's
-    cursors, the state with ``state_fields``, the ``extra`` scalars named
-    as the state's fields, and a WorkCounter of views of ``cursors``."""
-    queue, state, _, _ = carry
+    cursors (a packed lane's as lane 0 of its MultiQueue; the round-robin
+    pointer stays, as the fused pop never moves it), the state with
+    ``state_fields``, the ``extra`` scalars named as the state's fields, a
+    WorkCounter of views of ``cursors``, and ``ring`` as the fifth leaf of
+    a traced carry."""
+    queue, state = carry[0], carry[1]
     c = dict(zip(CURSORS + tuple(extra), cursors.unbind()))
-    queue = dataclasses.replace(queue, buf=buf, head=c["head"],
-                                tail=c["tail"], dropped=c["dropped"])
+    if isinstance(queue, MultiQueue):
+        queue = dataclasses.replace(queue, lanes=dataclasses.replace(
+            queue.lanes, buf=buf.unsqueeze(0), head=c["head"].reshape(1),
+            tail=c["tail"].reshape(1), dropped=c["dropped"].reshape(1)))
+    else:
+        queue = dataclasses.replace(queue, buf=buf, head=c["head"],
+                                    tail=c["tail"], dropped=c["dropped"])
     state = dataclasses.replace(
         state, **state_fields, **{name: c[name] for name in extra},
         counter=WorkCounter(work=c["work"], splits=c["splits"],
                             rounds=c["counter_rounds"]))
-    return queue, state, c["rounds"], c["processed"]
+    out = (queue, state, c["rounds"], c["processed"])
+    return out if ring is None else out + (ring,)

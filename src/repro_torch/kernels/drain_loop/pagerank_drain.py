@@ -8,7 +8,9 @@ granularity 1 <= G <= 64.  The drain computes exactly what
 ``rank``, ``residue``, ``in_queue``, the rescan cursor, the WorkCounter
 (splits included), rounds and processed items, bit for bit; each target's
 contributions are added in unit order, as ``kernels/scatter_add`` adds
-them on the persistent path.  See the note in the source for its
+them on the persistent path.  The carry picks the mode: a packed lane of
+the fused topology is the fused mode (B3-fused), a trace ring as the fifth
+leaf the traced mode (B3-traced).  See the note in the source for its
 structure and what bounds it.
 """
 from __future__ import annotations
@@ -19,8 +21,9 @@ import functools
 import torch
 
 from ..build import check_launch, load
-from .launch import (check_operand, chunk_operands, launch_plan,
-                     pack_cursors, unpack_carry, window_words)
+from .launch import (check_operand, check_packed, chunk_operands, lane_of,
+                     launch_plan, pack_cursors, ring_args, ring_of,
+                     unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -29,22 +32,24 @@ _I32 = torch.int32
 def _lib():
     lib = load("pagerank_drain")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pagerank_drain_grid.argtypes = [i, i, ctypes.POINTER(i),
+    lib.pagerank_drain_grid.argtypes = [i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
     lib.pagerank_drain_grid.restype = i
     lib.pagerank_drain_launch.argtypes = (
         [p, i, p, p, p, i, p, p, i, p, i, i, i, f, f, i, i, i, i]
-        + [p] * 19 + [i, p])
+        + [p] * 19 + [i, p, i, p, i, p])
     lib.pagerank_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index: int, wavefront: int, granularity: int):
+def _grid(device_index: int, wavefront: int, granularity: int, packed: bool,
+          traced: bool):
     """``(blocks, wavefront in shared memory)`` of the launch, read once per
-    device, wavefront and granularity."""
+    device, wavefront, granularity and mode."""
     return launch_plan(_lib().pagerank_drain_grid, "pagerank_drain",
-                       device_index, wavefront, granularity)
+                       device_index, wavefront, granularity, int(packed),
+                       int(traced))
 
 
 def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
@@ -52,8 +57,11 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                         damping: float, eps: float, max_rounds: int,
                         limit=None, granularity: int = 1,
                         split_threshold=None):
-    """Drain ``carry = (queue, PRState, rounds, processed)`` in one launch,
-    ``while rounds < min(max_rounds, limit) and max(residue) > eps``.
+    """Drain ``carry = (queue, PRState, rounds, processed[, ring])`` in one
+    launch, ``while rounds < min(max_rounds, limit) and max(residue) >
+    eps``.  ``queue`` is a TaskQueue or a one-lane MultiQueue of packed
+    tasks (the fused mode); a TraceRing as the fifth leaf gets one row a
+    round (the traced mode) and comes back as a fresh copy.
 
     Returns the new carry; its queue buffer, ``rank``, ``residue`` and
     ``in_queue`` are fresh copies that the kernel updated in place, its
@@ -63,16 +71,17 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     (``algorithms.common.chunking_for``).  Launches on the current stream,
     allocates its scratch with PyTorch and makes no host sync.
     """
-    queue, state, _, _ = carry
+    state = carry[1]
+    lane_buf, _, _, _, packed = lane_of(carry[0])
     device = row_ptr.device
     for name, t, dtype in (("row_ptr", row_ptr, _I32),
                            ("col_idx", col_idx, _I32),
-                           ("queue.buf", queue.buf, _I32),
+                           ("queue.buf", lane_buf, _I32),
                            ("rank", state.rank, torch.float32),
                            ("residue", state.residue, torch.float32),
                            ("in_queue", state.in_queue, torch.bool)):
         check_operand("pagerank_drain_cuda", name, t, device, dtype)
-    n, m, cap = state.rank.shape[0], col_idx.shape[0], queue.buf.shape[0]
+    n, m, cap = state.rank.shape[0], col_idx.shape[0], lane_buf.shape[0]
     if row_ptr.shape[0] != n + 1 or n < 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries for "
                          f"{n} vertices")
@@ -86,11 +95,15 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                          "range")
     codec = chunk_operands("pagerank_drain_cuda", n, granularity,
                            split_threshold)
-    grid, wave_in_shared = _grid(device.index, wavefront, granularity)
+    if packed:
+        check_packed("pagerank_drain_cuda", n, granularity)
+    ring = ring_of("pagerank_drain_cuda", carry, device)
+    grid, wave_in_shared = _grid(device.index, wavefront, granularity,
+                                 packed, ring is not None)
 
     cursors = pack_cursors(carry, limit, max_rounds, device,
                            state.check_cursor)
-    buf = queue.buf.clone()
+    buf = lane_buf.clone()
     rank = state.rank.clone()
     residue = state.residue.clone()
     in_queue = state.in_queue.clone()
@@ -126,12 +139,14 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             small.data_ptr(), small[grid:2 * grid].data_ptr(),
             small[2 * grid:2 * grid + 2].data_ptr(),
             None if wave is None else wave.data_ptr(), units.data_ptr(),
-            grid, torch.cuda.current_stream().cuda_stream)
+            int(packed), *ring_args(ring), grid,
+            torch.cuda.current_stream().cuda_stream)
     check_launch(err, "pagerank_drain")
     pagerank_drain_cuda.launches += 1
     pagerank_drain_cuda.units_expanded = units
     return unpack_carry(carry, buf, cursors, extra=("check_cursor",),
-                        rank=rank, residue=residue, in_queue=in_queue)
+                        ring=ring, rank=rank, residue=residue,
+                        in_queue=in_queue)
 
 
 #: launches of the kernel since the count was last set to 0

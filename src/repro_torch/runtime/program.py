@@ -13,9 +13,10 @@ packages one application's drain:
                               -> optional CUDA drain kernel for the
                                  megakernel strategy (the port's own field)
 
-The reference's replica-merge spec and ``task_vertex``/``task_width``
-come with the sharded and fused slices, its ``dirty_seeds`` hook with the
-streaming slice.
+The reference's replica-merge spec and ``task_vertex`` come with the
+sharded slice, ``task_width`` (the server's vertex quota) with the task
+server, and ``dirty_seeds`` with the streaming slice.  The fused topology
+needs none of them: its lane packs whatever the body consumes.
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ from repro_torch.algorithms.bfs import bfs_bsp, bfs_speculative
 from repro_torch.convert import (bfs_state_from_numpy, queue_from_numpy,
                                  to_numpy)
 from repro_torch.core import SchedulerConfig
-from repro_torch.runtime import build_program, config_for, parse_policy
+from repro_torch.runtime import (build_program, config_for, parse_policy,
+                                 policy_of)
 from repro_torch.runtime.api import _shared_setup, execute
 
 GRAPHS = {
@@ -126,8 +127,8 @@ def test_drain_handed_across_mid_way(graphs, g):
     params = {"source": 7}
     jq, js, _, jstep, _, _ = j_setup(j_build("bfs", jgraph, jcfg, params),
                                      jgraph, jcfg, j_parse(policy), None)
-    _, _, tstep, _ = _shared_setup(build_program("bfs", tgraph, tcfg, params),
-                                   tgraph, tcfg, None)
+    tstep = _shared_setup(build_program("bfs", tgraph, tcfg, params),
+                          tgraph, tcfg, policy_of(tcfg), None)[3]
     zero = np.int32(0)
     carry = (jq, js, zero, zero)
     for _ in range(3):

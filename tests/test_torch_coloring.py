@@ -35,7 +35,8 @@ from repro_torch.convert import (coloring_state_from_numpy, graph_from_numpy,
                                  queue_from_numpy)
 from repro_torch.core import (ChunkCodec, SchedulerConfig, chunk_degrees,
                               megakernel_drive, megakernel_segment)
-from repro_torch.runtime import build_program, config_for, parse_policy
+from repro_torch.runtime import (build_program, config_for, parse_policy,
+                                 policy_of)
 from repro_torch.runtime.api import _shared_setup, drain_setup, execute
 
 GRAPHS = {
@@ -146,8 +147,8 @@ def test_init_state_and_queue_match_jax(graphs, g):
     jcfg, tcfg = _configs(policy)
     jq, js, *_ = j_setup(j_build("coloring", jgraph, jcfg), jgraph, jcfg,
                          j_parse(policy), None)
-    tq, ts, _, _ = _shared_setup(build_program("coloring", tgraph, tcfg),
-                                 tgraph, tcfg, None)
+    tq, ts, *_ = _shared_setup(build_program("coloring", tgraph, tcfg),
+                               tgraph, tcfg, policy_of(tcfg), None)
     _assert_state(ts, js)
     for field in ("buf", "head", "tail", "dropped"):
         np.testing.assert_array_equal(getattr(tq, field).numpy(),
@@ -398,8 +399,8 @@ def test_drain_handed_across_mid_way(graphs, g):
     jcfg, tcfg = _configs(policy)
     jq, js, _, jstep, _, _ = j_setup(j_build("coloring", jgraph, jcfg),
                                      jgraph, jcfg, j_parse(policy), None)
-    _, _, tstep, _ = _shared_setup(build_program("coloring", tgraph, tcfg),
-                                   tgraph, tcfg, None)
+    tstep = _shared_setup(build_program("coloring", tgraph, tcfg), tgraph,
+                          tcfg, policy_of(tcfg), None)[3]
     zero = np.int32(0)
     carry = (jq, js, zero, zero)
     for _ in range(3):

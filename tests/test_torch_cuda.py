@@ -3,8 +3,8 @@ version at the main path's shapes and edge sizes, BFS through both kernels
 against the plain backend, the ordered scatter-add against the CPU's
 sequential sum and the PageRank and coloring drain kernels against their
 persistent, plain and CPU drains, bit for bit, every drain kernel at
-granularities 2, 3 and 8 (and BFS per_item) against the plain fused drain,
-and the flash-attention
+granularities 2, 3 and 8 (and BFS per_item) and in its fused and traced
+modes against the plain fused drain, and the flash-attention
 kernel B5 against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
@@ -133,7 +133,8 @@ def test_stream_kernel_matches_plain(n_items, budget, how):
 
 
 # ----------------------- B3, the drain megakernels (BFS, PageRank, coloring)
-def _algo_setup(graph, algo, policy, backend="auto", params=None, **kw):
+def _algo_setup(graph, algo, policy, backend="auto", params=None,
+                trace=None, **kw):
     from repro_torch.core import SchedulerConfig
     from repro_torch.runtime import build_program, config_for, parse_policy
     from repro_torch.runtime.api import drain_setup
@@ -142,7 +143,7 @@ def _algo_setup(graph, algo, policy, backend="auto", params=None, **kw):
     base.update(kw)
     cfg = config_for(SchedulerConfig(**base), parse_policy(policy))
     return drain_setup(build_program(algo, graph, cfg, params=params),
-                       graph, cfg)
+                       graph, cfg, trace=trace)
 
 
 def _setup(graph, policy, source=0, backend="auto", **kw):
@@ -326,6 +327,55 @@ def test_wide_megakernel_matches_the_plain_fused_drain(graph, algo, g, params,
     _, _, info = execute(build_program(algo, g_cuda, cfg, params=params),
                          g_cuda, cfg)
     assert info["launches"] == 1
+
+
+# B3-fused and B3-traced: (algo, mode, G); the traced ring (100 rows) wraps
+# in PageRank's drains and not in BFS's
+MODE_CASES = [(algo, mode, g) for algo in ("bfs", "pagerank", "coloring")
+              for mode, g in (("fused", 1), ("fused", 2), ("traced", 1),
+                              ("traced", 4), ("fused traced", 1))]
+
+
+@pytest.mark.parametrize("algo,mode,g", MODE_CASES)
+def test_drain_kernel_modes_match_the_plain_fused_drain(algo, mode, g):
+    """The fused mode (a packed one-lane MultiQueue) and the traced mode (a
+    TraceRing as the carry's fifth leaf) of each drain kernel at rmat(11):
+    one launch of the program's drain kernel and no other, and the carry
+    bitwise equal to the plain fused drain over the same step run on the
+    CPU -- the lane's buffer and cursors, the ring's rows and cursor
+    included."""
+    _require_cuda()
+    from repro_torch.core import MultiQueue, megakernel_drive, no_host_sync
+    from repro_torch.graph import rmat
+    from repro_torch.obs import Trace
+
+    g_cuda = rmat(11, 16, seed=2, device="cuda")
+    topology = "fused" if "fused" in mode else "single"
+    policy = f"{topology}.megakernel" + ("" if g == 1 else f".g{g}")
+    params = {"source": 0} if algo == "bfs" else None
+
+    def trace():
+        return Trace(capacity=100) if "traced" in mode else None
+
+    mega = _algo_setup(g_cuda, algo, policy, params=params, trace=trace())
+    assert mega.kernel is not None
+    assert isinstance(mega.carry[0], MultiQueue) == (topology == "fused")
+    before = _launches()
+    with no_host_sync(g_cuda.device):
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+    torch.cuda.synchronize()
+    launched = [now - was for now, was in zip(_launches(), before)]
+    which = ("bfs", "pagerank", "coloring").index(algo)
+    assert launched == [int(i == which) for i in range(6)]
+    assert len(got) == (5 if "traced" in mode else 4)
+    plain = _algo_setup(g_cuda.to("cpu"), algo, policy, params=params,
+                        trace=trace())
+    assert plain.kernel is None
+    _assert_same(got, megakernel_drive(plain.step, plain.cond, plain.carry))
+    assert int(mega.dropped(got[0])) == 0 and int(got[2]) > 1
+    if "traced" in mode:
+        assert int(got[4].cursor) == int(got[2])
 
 
 def test_megakernel_without_a_drain_kernel_raises_on_cuda():

@@ -40,7 +40,8 @@ from repro_torch.core import (ChunkCodec, SchedulerConfig, WorkCounter,
                               megakernel_drive, megakernel_segment)
 from repro_torch.kernels.scatter_add.ops import ordered_scatter_add
 from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
-from repro_torch.runtime import build_program, config_for, parse_policy
+from repro_torch.runtime import (build_program, config_for, parse_policy,
+                                 policy_of)
 from repro_torch.runtime.api import _shared_setup, drain_setup, execute
 
 GRAPHS = {
@@ -86,8 +87,9 @@ def test_init_state_and_queue_match_jax(graphs, g, params):
     jcfg, tcfg = _configs(policy)
     jq, js, *_ = j_setup(j_build("pagerank", jgraph, jcfg, params), jgraph,
                          jcfg, j_parse(policy), None)
-    tq, ts, _, _ = _shared_setup(build_program("pagerank", tgraph, tcfg,
-                                               params), tgraph, tcfg, None)
+    tq, ts, *_ = _shared_setup(build_program("pagerank", tgraph, tcfg,
+                                             params), tgraph, tcfg,
+                               policy_of(tcfg), None)
     _assert_state(ts, js)
     for field in ("buf", "head", "tail", "dropped"):
         np.testing.assert_array_equal(getattr(tq, field).numpy(),
@@ -242,8 +244,8 @@ def test_drain_handed_across_mid_way(graphs, g):
     jcfg, tcfg = _configs(policy)
     jq, js, _, jstep, _, _ = j_setup(j_build("pagerank", jgraph, jcfg),
                                      jgraph, jcfg, j_parse(policy), None)
-    _, _, tstep, _ = _shared_setup(build_program("pagerank", tgraph, tcfg),
-                                   tgraph, tcfg, None)
+    tstep = _shared_setup(build_program("pagerank", tgraph, tcfg), tgraph,
+                          tcfg, policy_of(tcfg), None)[3]
     zero = np.int32(0)
     carry = (jq, js, zero, zero)
     for _ in range(5):

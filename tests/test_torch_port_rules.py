@@ -1,7 +1,8 @@
 """Rules of the PyTorch port: it imports neither JAX nor the reference
 package; its entry points run on the card unless the caller asks for the
-CPU; the ``"cuda"`` backend never runs on CPU tensors; unported cells and
-options raise naming their ROADMAP item; the megakernel cell runs the
+CPU; the ``"cuda"`` backend never runs on CPU tensors; unported cells
+(the sharded topology, traced or not) and options raise naming their
+ROADMAP item; the megakernel cell runs the
 plain fused drain on CPU tensors; ``chip_smoke.py`` fails, and prints no
 result, away from the repository."""
 import ast
@@ -133,8 +134,8 @@ def test_policy_matrix_parses_like_jax():
 
 
 @pytest.mark.parametrize("policy,item", [
-    ("fused.persistent", "A7"), ("sharded.discrete", "A12"),
-    ("fused.megakernel", "A7")])
+    ("sharded.persistent.g4", "A12"), ("sharded.discrete", "A12"),
+    ("sharded.persistent", "A12")])
 def test_unported_cells_name_their_roadmap_item(policy, item):
     g = tg.grid2d(3, 3, device="cpu")
     cfg = config_for(SchedulerConfig(num_workers=2), parse_policy(policy))
@@ -178,10 +179,13 @@ def test_cpu_megakernel_is_the_plain_fused_drain_in_one_launch():
 
 
 def test_unported_algorithms_and_trace_raise():
+    from repro_torch.obs import Trace
+
     g = tg.grid2d(3, 3, device="cpu")
     cfg = SchedulerConfig(num_workers=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        execute(build_program("bfs", g, cfg), g, cfg, trace=[])
+    sharded = config_for(cfg, parse_policy("sharded.persistent"))
+    with pytest.raises(NotImplementedError, match="A12"):
+        execute(build_program("bfs", g, cfg), g, sharded, trace=Trace())
     with pytest.raises(ValueError, match="unknown bfs params"):
         build_program("bfs", g, cfg, params={"sorce": 0})
 
