@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. hold each kernel bit-equal to its plain PyTorch version on the card, at
      the main path's shapes and at edge sizes; the ordered scatter-add
      bit-equal to the CPU's sequential sum at a PageRank round's shape and
-     on one index repeated 1e5 times;
+     on one index repeated 1e5 times; B4 also over the slab array of the
+     graph's slotted build, at the slotted span SLAB_SLACK (budget + 1);
   4. the main path: speculative BFS on ``rmat(scale, 16)`` under
      ``single.persistent`` at granularity 1, merge-path expansion, backend
      ``auto`` (the kernels), from the highest-degree vertex.  Distances
@@ -80,6 +81,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      mode beside the untraced single drain; each mode's first 64 rounds
      against its plain fused drain (PageRank's on the CPU), and the fused
      traced modes whole at rmat(14) against the plain fused drain;
+  4g. streaming graphs (ROADMAP A9, B3-slotted): ``stream_execute`` over
+     ``edge_delta_stream(graph, 4, 16384, seed 7)`` with a compaction
+     every 2 batches (batches 1 and 3 drain with an overlay), each
+     megakernel batch drain one launch of its drain kernel's slotted mode
+     and none of B1, B2 or the scatter-add: BFS single.megakernel g1 and
+     g4, fused.megakernel g1 and single.persistent g1 against scipy and a
+     cold drain on the replayed graph and one another (batch records
+     included), cut into 64-round snapshot segments, resumed in-process
+     from an older snapshot, and traced (one row a round at absolute
+     rounds); PageRank converged, each rank within 2 eps rank / (1 - d)
+     + 8 u rank and within 10 eps max(rank, 1) of a cold drain, the push
+     invariant within its bound; coloring ``recolor`` equal to a cold
+     drain, ``conflicts`` valid for less work; per batch the commit,
+     reseed and drain seconds, PageRank's decay sweeps and the commit
+     meters; on batch 1's slotted view each drain kernel's slotted mode
+     over the first 64 rounds against the discrete cell's plain flat
+     gather (PageRank's on the CPU), timed beside the canonical mode on the
+     canonical CSR (BFS and coloring also whole); at rmat(14) each slotted
+     drain whole against the plain fused drain on the CPU; a child process
+     killed with SIGKILL in its snapshot hook, resumed here bit for bit;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events -- and the main drain
@@ -263,6 +284,37 @@ def check_compact(n_main: int, dev, rng) -> tuple:
         if n == n_main and p == 0.3:
             main_inputs = (items, mask)
     return main_inputs, err
+
+
+def check_stream_slotted(graph, budget: int, dev, rng) -> tuple:
+    """B4 at its slotted shape (the megakernel streams a chunk's slab span,
+    SLAB_SLACK (budget + 1) words from slab_ptr[head] of a slotted view's
+    slab array): 48 heads of the graph's slotted build, 1.98 M words each
+    at rmat(21), against its plain version; the kernel's int32 guard holds
+    against the slab array's length."""
+    from repro_torch.graph import SlottedCSR
+    from repro_torch.graph.slotted import SLAB_SLACK
+    from repro_torch.kernels.drain_loop.csr_stream import (
+        stream_row_slices_cuda, stream_row_slices_ref)
+
+    view = SlottedCSR.from_csr(graph).view()
+    heads = torch.as_tensor(rng.integers(0, graph.num_vertices, size=48),
+                            device=dev)
+    starts = view.slab_ptr[heads].contiguous()
+    width = SLAB_SLACK * (budget + 1)
+    if view.slab_col.shape[0] + width >= 2 ** 31:
+        raise AssertionError("the slab array and span exceed B4's int32 "
+                             "range")
+    got = stream_row_slices_cuda(view.slab_col, starts, width)
+    want = stream_row_slices_ref(view.slab_col, starts, width)
+    err = max_abs_err((got,), (want,))
+    log(f"  B4 csr_stream slotted span: items=48 width={width} from "
+        f"slab_ptr, slab array {view.slab_col.shape[0]} words: "
+        f"max_abs_err={err}")
+    if err or got.shape != want.shape:
+        raise AssertionError("the stream kernel over the slab array "
+                             "disagrees with stream_row_slices_ref")
+    return (view.slab_col, starts, width), err
 
 
 def check_stream(graph, dev, rng) -> tuple:
@@ -731,7 +783,7 @@ def first_rounds_times(algo: str, graph, kernel_name: str,
         lambda: drive(algo, graph, cfg_k, params, limit=FIRST_ROUNDS))
     k_ms, k_timed_by = kernel_device_ms(k_rows, kernel_name, drive.event_ms)
     ev_ms = cuda_ms(lambda: drive(algo, graph, cfg_k, params,
-                                  limit=FIRST_ROUNDS), reps=3, warmup=1)
+                                  limit=FIRST_ROUNDS), reps=1, warmup=0)
     held = {}
     p_ms, _ = device_profile(lambda: held.update(out=drive(
         algo, graph, cfg_t, params, limit=FIRST_ROUNDS)))
@@ -969,9 +1021,12 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
     cfg_p = algo_config("single.persistent")
     cfg_m = algo_config("single.megakernel")
     walls = {"persistent": [], "megakernel": []}
+    # one persistent drain gives the state, RunStats, info and final queue,
+    # set up by hand as execute sets it up
     reset_counts()
-    state, stats, info, secs = run_algo("coloring", graph, cfg_p)
+    carry_p, secs = drive("coloring", graph, cfg_p)
     counts = read_counts()
+    state, stats, info = outcome(carry_p, megakernel=False)
     walls["persistent"].append(secs)
     rounds = info["rounds"]
     steps = -(-rounds // POLL_EVERY) * POLL_EVERY
@@ -1017,8 +1072,6 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
         f"persistent drain's; drain {secs_m:.4f} s  [{card}]")
     carry_m, secs = drive("coloring", graph, cfg_m)
     walls["megakernel"].append(secs)
-    carry_p, secs = drive("coloring", graph, cfg_p)
-    walls["persistent"].append(secs)
     if not same_leaves(carry_m, carry_p):
         raise AssertionError(f"megakernel carry differs from the persistent "
                              f"one: {scalars(carry_m)} vs {scalars(carry_p)}")
@@ -1081,8 +1134,8 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
            "first_rounds_n": int(fc[2])}
     mean_p = sum(walls["persistent"]) / len(walls["persistent"])
     mean_m = sum(walls["megakernel"]) / len(walls["megakernel"])
-    log(f"    drains in turn (persistent, megakernel, megakernel, "
-        f"persistent): persistent {walls['persistent']} s, megakernel "
+    log(f"    drains (persistent once, the first; megakernel twice, after "
+        f"it): persistent {walls['persistent']} s, megakernel "
         f"{walls['megakernel']} s; {rounds} rounds, work/n "
         f"{out['work_per_n']:.3f}, {n_colors} colors: "
         f"{1e3 * mean_p / rounds:.3f} vs {1e3 * mean_m / rounds:.4f} "
@@ -1111,6 +1164,7 @@ WIDE = ".g4"                       # the policy suffix of the wide cells
 PR_CUT = 512                       # rounds of the PageRank cells held bitwise
 COL_CUT = 128                      # rounds of the coloring cells held bitwise
 PI_CUT = 64                        # rounds of the per_item cells held bitwise
+PROFILE_TRIES = 3                  # profiled calls before giving up
 
 
 def same_or_raise(label: str, got, want) -> None:
@@ -1136,14 +1190,26 @@ def profiled_drive(algo: str, graph, cfg, kernel_name: str | None,
                    params=None, limit=None, trace=None) -> dict:
     """One warm drain under the profiler: host seconds, device ms, the
     kernel's device ms (``kernel_name`` None: the plain drain's whole device
-    time) and the busy share.  Raises where the profiler saw no device
-    time or not the kernel."""
-    held = {}
-    dev_ms, rows = device_profile(lambda: held.update(
-        out=drive(algo, graph, cfg, params, limit=limit, trace=trace)))
+    time), the busy share and the same drain's time between CUDA events.
+    The profiler drops records now and then (see ``device_profile``): a
+    call it saw no device time of is made again, PROFILE_TRIES times in
+    all, and then raises.  The launches of a call made again are taken
+    off the counts, so a caller's count window sees the one call kept."""
+    for _ in range(PROFILE_TRIES):
+        before = read_counts()
+        held = {}
+        dev_ms, rows = device_profile(lambda: held.update(
+            out=drive(algo, graph, cfg, params, limit=limit, trace=trace)))
+        if dev_ms is not None:
+            break
+        log(f"    {algo}: the profiler saw no device time of the call; "
+            f"calling again")
+        for name, wrapper in _wrappers().items():
+            wrapper.launches = before[name]
+    else:
+        raise AssertionError(f"{algo}: the profiler saw no device time in "
+                             f"{PROFILE_TRIES} tries")
     carry, secs = held["out"]
-    if dev_ms is None:
-        raise AssertionError(f"{algo}: the profiler saw no device time")
     timed_by = "profiler device time"
     k_ms, busy = dev_ms, dev_ms / (1e3 * secs)
     if kernel_name is not None:
@@ -1152,7 +1218,18 @@ def profiled_drive(algo: str, graph, cfg, kernel_name: str | None,
             busy = None                # the device total lacks the kernel
     return {"carry": carry, "seconds": secs, "device_ms": dev_ms,
             "kernel_ms": k_ms, "timed_by": timed_by, "busy_share": busy,
-            "rows": rows[:8]}
+            "event_ms": drive.event_ms, "rows": rows[:8]}
+
+
+def paired_ms(a: dict, b: dict) -> tuple:
+    """``(a_ms, b_ms, timed_by)`` of two ``profiled_drive`` results on one
+    clock: both kernels' profiler device times where the profiler kept
+    both records, else both drains' times between CUDA events."""
+    if a["timed_by"] == b["timed_by"] == "profiler device time":
+        return a["kernel_ms"], b["kernel_ms"], "profiler device time"
+    return (a["event_ms"], b["event_ms"],
+            "CUDA events around both driver calls (the profiler dropped a "
+            "kernel's record)")
 
 
 def bfs_bytes(units: int, carry) -> int:
@@ -1944,6 +2021,522 @@ def fused_and_traced(graph, grid, source: int, want, want_grid, mega: dict,
     return out
 
 
+# ------------------------- phase 4g: streaming graphs (A9, B3-slotted)
+STREAM = {"num_batches": 4, "batch_size": 16384, "seed": 7,
+          "insert_frac": 0.5}
+STREAM_KNOBS = {"compact_every": 2, "overlay_slack": 0.25}
+SNAPSHOT_EVERY = 64
+HOST_SECONDS = ("commit_seconds", "reseed_seconds", "drain_seconds")
+SLOT_BYTES = 12                    # a row's slab_ptr, slab_len and ovl_ptr
+
+
+def stream_run(algo: str, graph, deltas, policy: str, params=None,
+               **kw) -> tuple:
+    """``(StreamResult, counts, seconds)`` of one ``stream_execute`` on
+    ``graph`` with phase 4g's compaction knobs; ``counts`` are the kernel
+    launches of the whole stream."""
+    from repro_torch.runtime import stream_execute
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stream_execute(algo, graph, deltas, algo_config(policy),
+                         params=params, **STREAM_KNOBS, **kw)
+    torch.cuda.synchronize()
+    return res, read_counts(), time.perf_counter() - t0
+
+
+def records_of(res) -> list:
+    """The stream's batch records without their host seconds."""
+    import dataclasses
+
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if k not in HOST_SECONDS} for r in res.batches]
+
+
+def log_batches(label: str, res, card: str) -> list:
+    """One line per batch: commit, reseed and drain seconds, PageRank's
+    decay sweeps, the commit meters; returns the rows."""
+    rows = []
+    for r in res.batches:
+        rows.append({"batch": r.batch, "commit_s": r.commit_seconds,
+                     "reseed_s": r.reseed_seconds,
+                     "drain_s": r.drain_seconds, "sweeps": r.reseed_sweeps,
+                     "touched_rows": r.touched_rows, "overlay": r.overlay,
+                     "compacted": r.compacted, "seeds": r.seeds,
+                     "rounds": r.rounds, "work": r.work,
+                     "effective_ops": r.effective_ops})
+        log(f"      {label} batch {r.batch}: commit {r.commit_seconds:.4f} s,"
+            f" reseed {r.reseed_seconds:.4f} s, drain {r.drain_seconds:.4f}"
+            f" s; sweeps {r.reseed_sweeps}; touched_rows {r.touched_rows}, "
+            f"overlay {r.overlay}, compacted {r.compacted}; seeds {r.seeds},"
+            f" rounds {r.rounds}, work {r.work}  [{card}]")
+    return rows
+
+
+def launches_only(label: str, counts: dict, name: str, want: int) -> None:
+    if counts != only(**{name: want}):
+        raise AssertionError(f"{label}: expected {want} {name} launches "
+                             f"(one a batch drain or segment) and no other "
+                             f"kernel, got {counts}")
+
+
+def bfs_streams(graph, deltas, source: int, final, card: str) -> dict:
+    """BFS over the delta log: single.megakernel g1 and g4,
+    fused.megakernel g1 and single.persistent g1, against scipy on the
+    final graph, a cold drain on it and one another; single.megakernel g1
+    cut into 64-round snapshot segments, resumed in-process from an older
+    snapshot, and traced."""
+    import shutil
+
+    from repro_torch.obs import Trace
+
+    params = {"source": source}
+    want = host_bfs(final, source)
+    cold, _, cold_info, _ = run_algo("bfs", final,
+                                     algo_config("single.megakernel"),
+                                     params)
+    if not np.array_equal(cold.dist.cpu().numpy(), want):
+        raise AssertionError("the cold BFS drain on the final graph "
+                             "differs from scipy")
+    out = {"cells": {}}
+    base = None
+    batches = STREAM["num_batches"] + 1
+    for policy in ("single.megakernel", "single.megakernel.g4",
+                   "fused.megakernel", "single.persistent"):
+        res, counts, secs = stream_run("bfs", graph, deltas, policy, params)
+        if "megakernel" in policy:
+            launches_only(f"BFS stream {policy}", counts, "bfs_drain",
+                          batches)
+        elif counts["bfs_drain"] or not (counts["lbs"] and
+                                         counts["compact"]):
+            raise AssertionError(f"BFS stream {policy}: {counts}")
+        dist = res.result.cpu().numpy()
+        if not np.array_equal(dist, want):
+            raise AssertionError(f"BFS stream {policy}: dist differs from "
+                                 f"scipy on the final graph at "
+                                 f"{int((dist != want).sum())} vertices")
+        if res.info["dropped"] or not any(r.overlay for r in res.batches):
+            raise AssertionError(f"BFS stream {policy}: {res.info}")
+        rec = records_of(res)
+        if policy == "single.megakernel":
+            base = (res, rec)
+        elif ".g4" not in policy and (
+                rec != base[1] or not same_leaves(res.state, base[0].state)
+                or {k: v for k, v in res.info.items()
+                    if k not in ("topology", "commit_seconds")}
+                != {k: v for k, v in base[0].info.items()
+                    if k not in ("topology", "commit_seconds")}):
+            raise AssertionError(f"BFS stream {policy} differs from "
+                                 f"single.megakernel: {rec} vs {base[1]}")
+        elif [{k: r[k] for k in ("touched_rows", "overlay", "compacted",
+                                 "effective_ops")} for r in rec] != \
+                [{k: r[k] for k in ("touched_rows", "overlay", "compacted",
+                                    "effective_ops")} for r in base[1]]:
+            raise AssertionError(f"BFS stream {policy}: commit meters differ")
+        out["cells"][policy] = {"seconds": secs, "counts": counts,
+                                "info": res.info,
+                                "batches": log_batches(f"BFS {policy}", res,
+                                                       card)}
+        log(f"    BFS stream {policy}: dist equals scipy and the cold drain "
+            f"on the final graph; {counts['bfs_drain']} drain launches for "
+            f"{batches} batches; info {res.info}; {secs:.3f} s  [{card}]")
+    res, rec = base
+
+    # snapshots every 64 rounds: the same stream, one launch a segment
+    snap_dir = ROOT / "build" / "chip_smoke_snapshots"
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    ticks = []
+    cut, counts, secs = stream_run(
+        "bfs", graph, deltas, "single.megakernel", params,
+        snapshot_every=SNAPSHOT_EVERY, checkpoint_dir=str(snap_dir),
+        keep=1000, snapshot_hook=lambda t, b: ticks.append((t, b)))
+    launches_only("BFS snapshot stream", counts, "bfs_drain",
+                  len(ticks) - batches)
+    if records_of(cut) != rec or not same_leaves(cut.state, res.state):
+        raise AssertionError("the BFS stream cut into 64-round segments "
+                             "differs from the whole")
+    # resume from batch 2's last snapshot (after a compaction): drop every
+    # later one; the resume replays the commits of batches 1 and 2
+    tick, batch = [t for t in ticks if t[1] == 2][-1]
+    for t, _ in ticks:
+        if t > tick:
+            shutil.rmtree(snap_dir / f"snap_{t}")
+    resumed, _, resume_secs = stream_run(
+        "bfs", graph, deltas, "single.megakernel", params,
+        snapshot_every=SNAPSHOT_EVERY, checkpoint_dir=str(snap_dir),
+        keep=1000, resume=True)
+    if resumed.info["resumed_at"] != batch \
+            or not same_leaves(resumed.state, res.state) \
+            or records_of(resumed) != rec[batch:]:
+        raise AssertionError(f"the BFS stream resumed from snapshot {tick} "
+                             f"differs: {resumed.info}")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    log(f"    BFS stream single.megakernel, snapshots every "
+        f"{SNAPSHOT_EVERY} rounds: {len(ticks)} snapshots, "
+        f"{counts['bfs_drain']} segment launches, equal to the whole "
+        f"stream ({secs:.3f} s); resumed in-process from snapshot {tick} "
+        f"(batch {batch}), bit-identical ({resume_secs:.3f} s)  [{card}]")
+
+    trace = Trace(capacity=TRACE_CAPACITY)
+    traced, counts, tsecs = stream_run("bfs", graph, deltas,
+                                       "single.megakernel", params,
+                                       trace=trace)
+    launches_only("BFS traced stream", counts, "bfs_drain", batches)
+    total = traced.info["rounds"]
+    if not same_leaves(traced.state, res.state) or trace.truncated \
+            or [r["round"] for r in trace.records] != list(range(total)) \
+            or sum(r["pops"] for r in trace.records) != \
+            traced.info["processed"]:
+        raise AssertionError(f"the traced BFS stream: {len(trace.records)} "
+                             f"rows for {total} rounds, {trace.truncated} "
+                             f"truncated")
+    log(f"    BFS stream traced: one row a round at absolute rounds "
+        f"(0..{total - 1}), pops reconcile, equal to the untraced stream "
+        f"({tsecs:.3f} s)  [{card}]")
+    out.update({"cold_info": cold_info, "snapshots": len(ticks),
+                "segment_launches": counts["bfs_drain"],
+                "resumed_at": batch, "traced_rounds": total})
+    return out
+
+
+def pagerank_stream(graph, deltas, final, card: str) -> dict:
+    """PageRank single.megakernel g1 over the delta log: converged; each
+    vertex's rank within 2 eps rank / (1 - d) + 8 u rank of a cold drain
+    on the final graph, and within 10 eps max(rank, 1) (the reference's
+    10 eps, scaled to ranks above 1); the push invariant within its
+    float32 bound."""
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
+
+    res, counts, secs = stream_run("pagerank", graph, deltas,
+                                   "single.megakernel", PR_PARAMS)
+    # the reseed's float64 sums launch the ordered scatter-add once, and
+    # once a decay sweep; the drains launch nothing but B3-pr
+    reseed_sums = sum(1 + r.reseed_sweeps for r in res.batches[1:])
+    if counts != only(pagerank_drain=STREAM["num_batches"] + 1,
+                      ordered_scatter_add=reseed_sums):
+        raise AssertionError(f"PageRank stream: expected one pagerank_drain "
+                             f"launch a batch drain and {reseed_sums} "
+                             f"ordered scatter-adds in the reseeds, and no "
+                             f"other kernel: {counts}")
+    units_last = int(pagerank_drain_cuda.units_expanded)
+    max_res = float(res.state.residue.max())
+    cold, _, cold_info, cold_secs = run_algo(
+        "pagerank", final, algo_config("single.megakernel"), PR_PARAMS)
+    eps, d = PR_PARAMS["eps"], PR_PARAMS["damping"]
+    # two drains that stop with every residue in [-eps, eps] each lie within
+    # eps (I - d P)^-1 1 = eps rank / (1 - d) of the fixed point, vertex by
+    # vertex (rank = (1 - d) (I - d P)^-1 1): they agree within 2 eps rank /
+    # (1 - d), plus float32 rounding.  The reference's 10 eps (its test at
+    # rmat(6), ranks near 1) is this bound where rank is about 1; a hub's
+    # rank is far above 1, and the slack grows with it.
+    diff_t = (res.result.double() - cold.rank.double()).abs()
+    top = torch.maximum(res.result, cold.rank).double()
+    slack = 2 * eps / (1 - d) * top + 8 * U32 * top
+    diff = float(diff_t.max())
+    ratio = float((diff_t / slack).max())
+    within_10_eps = float((diff_t / (10 * eps * top.clamp(min=1.0))).max())
+    # the reseed restores the invariant in float64 and casts rank and
+    # residue to float32 (two roundings a vertex, and rank's rounding in the
+    # right-hand side): 4 n on top of the last drain's units and work
+    last = res.batches[-1]
+    inv = pagerank_invariant(final, res.state, units_last,
+                             last.work + 4 * final.num_vertices)
+    if not (max_res <= eps and res.info["dropped"] == 0 and ratio <= 1.0
+            and within_10_eps <= 1.0 and inv["sum_rel_err"] <= inv["bound"]
+            and inv["ref_max_rel_err"] <= inv["ref_limit"]):
+        raise AssertionError(f"PageRank stream: max residue {max_res}, "
+                             f"|stream - cold| {diff} ({ratio} of the "
+                             f"bound, {within_10_eps} of 10 eps max(rank, "
+                             f"1)), invariant {inv}, {res.info}")
+    log(f"    PageRank stream single.megakernel: converged (max residue "
+        f"{max_res:.3g}); max |rank - cold| = {diff:.3g}, {ratio:.3g} of "
+        f"2 eps rank / (1 - d) + 8 u rank, {within_10_eps:.3g} of 10 eps "
+        f"max(rank, 1); push "
+        f"invariant {inv['sum_rel_err']:.4g} <= {inv['bound']:.4g}, "
+        f"{inv['ref_max_rel_err']:.3g} from a float64 power iteration; "
+        f"{counts['pagerank_drain']} drain launches, {reseed_sums} float64 "
+        f"scatter-adds in the reseeds; {secs:.3f} s (cold drain "
+        f"{cold_secs:.3f} s, {cold_info['rounds']} rounds)  [{card}]")
+    return {"info": res.info, "seconds": secs, "counts": counts,
+            "max_residue": max_res, "max_diff_vs_cold": diff,
+            "diff_over_bound": ratio, "diff_over_10_eps_rank": within_10_eps,
+            "invariant": inv, "cold_info": cold_info,
+            "cold_seconds": cold_secs,
+            "batches": log_batches("PageRank", res, card)}
+
+
+def coloring_streams(graph, deltas, final, card: str) -> dict:
+    """Coloring single.megakernel g1: ``recolor`` bitwise equal to a cold
+    drain on the final graph; ``conflicts`` valid, for less work."""
+    from repro_torch.algorithms.coloring import validate_coloring
+
+    out = {}
+    cold, _, cold_info, _ = run_algo("coloring", final,
+                                     algo_config("single.megakernel"))
+    for dirty in ("recolor", "conflicts"):
+        res, counts, secs = stream_run("coloring", graph, deltas,
+                                       "single.megakernel", {"dirty": dirty})
+        launches_only(f"coloring stream {dirty}", counts, "coloring_drain",
+                      STREAM["num_batches"] + 1)
+        if not validate_coloring(final, res.result):
+            raise AssertionError(f"coloring stream {dirty}: not a valid "
+                                 f"coloring of the final graph")
+        if dirty == "recolor" and not torch.equal(res.result, cold.colors):
+            raise AssertionError("coloring stream recolor differs from the "
+                                 "cold drain on the final graph")
+        out[dirty] = {"info": res.info, "seconds": secs, "counts": counts,
+                      "batches": log_batches(f"coloring {dirty}", res,
+                                             card)}
+        log(f"    coloring stream {dirty}: valid on the final graph"
+            f"{', equal to the cold drain' if dirty == 'recolor' else ''};"
+            f" work {res.info['work']}; {secs:.3f} s  [{card}]")
+    if not out["conflicts"]["info"]["work"] < out["recolor"]["info"]["work"]:
+        raise AssertionError("coloring conflicts did no less work than "
+                             "recolor")
+    out["cold_info"] = cold_info
+    return out
+
+
+def slotted_view_after(graph, delta):
+    """Batch 1's slotted view: ``delta`` committed with phase 4g's knobs
+    (no compaction at batch 1), its overlay non-empty."""
+    from repro_torch.graph import SlottedCSR
+    from repro_torch.stream import commit
+
+    s = SlottedCSR.from_csr(graph)
+    applied = commit(s, delta, 1, **STREAM_KNOBS)
+    if applied.compacted or s.overlay_size == 0:
+        raise AssertionError(f"batch 1's view: compacted {applied.compacted},"
+                             f" overlay {s.overlay_size}")
+    return s.view(), s
+
+
+def slotted_first_rounds(algo: str, view, canonical, source: int,
+                         card: str) -> dict:
+    """A drain kernel's slotted mode over the first FIRST_ROUNDS rounds of
+    a cold drain on batch 1's view: one launch, bitwise equal to the
+    discrete cell's plain flat gather on the same view (on the card;
+    PageRank's, whose plain scatter-add on the card sums in another order,
+    on the CPU, as in 4c); the plain slotted stream's [W, 4 (budget + 1)]
+    slices would not fit.  Timed beside the plain drain on the card and the
+    canonical mode on the same graph's canonical CSR."""
+    params = PR_PARAMS if algo == "pagerank" else (
+        {"source": source} if algo == "bfs" else None)
+    name = DRAINS[algo]
+    wrapper = _wrappers()[name]
+    reset_counts()
+    kern = profiled_drive(algo, view, algo_config("single.megakernel"), name,
+                          params, limit=FIRST_ROUNDS)
+    counts = read_counts()
+    launches_only(f"{algo} slotted, first rounds", counts, name, 1)
+    counted = (int(wrapper.visits) if algo == "coloring"
+               else int(wrapper.units_expanded))
+    carry = kern["carry"]
+    plain_cfg = algo_config("single.discrete", backend="torch",
+                            max_rounds=FIRST_ROUNDS)
+    plain = profiled_drive(algo, view, plain_cfg, None, params)
+    if algo == "pagerank":
+        t0 = time.perf_counter()
+        want = host_plain_drain(algo, view.to("cpu"), plain_cfg, params)
+        cpu_secs = time.perf_counter() - t0
+        held_against = "the discrete cell's plain flat gather on the CPU"
+    else:
+        want, cpu_secs = plain["carry"], None
+        held_against = "the discrete cell's plain flat gather on the card"
+    same_or_raise(f"{algo} slotted, first {FIRST_ROUNDS} rounds, kernel vs "
+                  f"{held_against}", carry, want)
+    canon = profiled_drive(algo, canonical, algo_config("single.megakernel"),
+                           name, params, limit=FIRST_ROUNDS)
+    slot_ms, canon_ms, pair_by = paired_ms(kern, canon)
+    n = view.num_vertices
+    rounds = int(carry[2])
+    pushed = int(lane_queue(carry[0]).tail) - (0 if algo == "bfs" else n)
+    if algo == "bfs":
+        moved = bfs_bytes(counted, carry)
+    elif algo == "pagerank":
+        moved = pagerank_bytes(counted, int(carry[1].counter.work),
+                               int(carry[3]), rounds,
+                               min(1024 * PR_PARAMS["check_size"], n),
+                               pushed)
+    else:
+        moved = coloring_bytes(counted, int(carry[3]),
+                               int(carry[1].counter.work), pushed)
+    moved += SLOT_BYTES * int(carry[3])
+    log(f"    {name} slotted, first {rounds} rounds on batch 1's view: one "
+        f"launch, equal to {held_against}"
+        f"{'' if cpu_secs is None else f' ({cpu_secs:.1f} s there)'}; "
+        f"kernel {kern['kernel_ms']:.3f} ms ({kern['timed_by']}), plain "
+        f"{plain['device_ms']:.3f} ms device on the card; slotted "
+        f"{slot_ms:.3f} ms vs canonical mode {canon_ms:.3f} ms on the "
+        f"canonical CSR ({pair_by}); bound "
+        f"{1e3 * moved / HBM_BYTES_PER_S:.4f} ms (bytes)  [{card}]")
+    return {"rounds": rounds, "kernel_ms": kern["kernel_ms"],
+            "timed_by": kern["timed_by"], "plain_ms": plain["device_ms"],
+            "paired_ms": slot_ms, "canonical_ms": canon_ms,
+            "paired_timed_by": pair_by,
+            "cpu_plain_seconds": cpu_secs, "held_against": held_against,
+            "max_abs_err": carry_err(carry, want), "bound_bytes": moved,
+            "counts": counts}
+
+
+def slotted_whole_drains(view, canonical, card: str) -> dict:
+    """BFS's and coloring's whole cold drains on batch 1's view through the
+    slotted mode beside the canonical mode on the canonical CSR (device
+    time), with equal results."""
+    out = {}
+    for algo, params in (("bfs", {"source": 0}), ("coloring", None)):
+        name = DRAINS[algo]
+        cfg = algo_config("single.megakernel")
+        slot = profiled_drive(algo, view, cfg, name, params)
+        canon = profiled_drive(algo, canonical, cfg, name, params)
+        if not same_leaves(slot["carry"], canon["carry"]):
+            raise AssertionError(f"{algo}: the slotted drain differs from "
+                                 f"the canonical drain on the same graph")
+        slot_ms, canon_ms, pair_by = paired_ms(slot, canon)
+        out[algo] = {"slotted_ms": slot_ms, "canonical_ms": canon_ms,
+                     "timed_by": pair_by, "rounds": int(slot["carry"][2])}
+        log(f"    {name} whole drain on batch 1's graph: slotted "
+            f"{slot_ms:.3f} ms, canonical {canon_ms:.3f} ms ({pair_by}), "
+            f"{int(slot['carry'][2])} rounds, equal carries  [{card}]")
+    return out
+
+
+def slotted_small(small_scale: int, card: str) -> dict:
+    """At rmat(small_scale): each program's whole slotted drain (a view
+    with an overlay) against the plain fused drain on the CPU."""
+    from repro_torch.graph import edge_delta_stream, rmat
+
+    small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    delta = edge_delta_stream(small, 1, 1024, seed=STREAM["seed"])[0]
+    view, _ = slotted_view_after(small, delta)
+    host = view.to("cpu")
+    out = {}
+    for algo in ("bfs", "pagerank", "coloring"):
+        params = PR_PARAMS if algo == "pagerank" else (
+            {"source": 0} if algo == "bfs" else None)
+        reset_counts()
+        carry, _ = drive(algo, view, algo_config("single.megakernel",
+                                                 workers=256), params)
+        launches_only(f"{algo} slotted at rmat({small_scale})", read_counts(),
+                      DRAINS[algo], 1)
+        t0 = time.perf_counter()
+        want = host_plain_drain(algo, host, algo_config(
+            "single.discrete", workers=256), params)
+        same_or_raise(f"{algo} slotted whole drain at rmat({small_scale}) vs "
+                      f"the plain fused drain on the CPU", carry, want)
+        out[algo] = {"rounds": int(carry[2]),
+                     "cpu_seconds": time.perf_counter() - t0}
+    log(f"    rmat({small_scale}) with an overlay of {int(view.ovl_ptr[-1])}:"
+        f" each slotted drain kernel equals the plain fused drain on the CPU "
+        f"bit for bit, whole drains {out}  [{card}]")
+    return out
+
+
+_KILLED_CHILD = """
+import os, signal, sys
+sys.path.insert(0, os.path.join(os.environ["REPO"], "src"))
+from repro_torch.core import SchedulerConfig
+from repro_torch.graph import edge_delta_stream, rmat
+from repro_torch.runtime import config_for, parse_policy, stream_execute
+
+base = rmat(int(os.environ["SCALE"]), edge_factor=16, seed=1, device="cuda")
+deltas = edge_delta_stream(base, 4, 1024, seed=7)
+cfg = config_for(SchedulerConfig(num_workers=256, fetch_size=4),
+                 parse_policy("single.megakernel"))
+
+def hook(tick, batch):
+    if tick == int(os.environ["KILL_AT"]):
+        os.kill(os.getpid(), signal.SIGKILL)
+
+stream_execute("bfs", base, deltas, cfg, params={"source": 0},
+               snapshot_every=8, checkpoint_dir=os.environ["SNAP_DIR"],
+               keep=1000, snapshot_hook=hook, compact_every=2,
+               overlay_slack=0.25)
+"""
+
+
+def sigkill_resume(small_scale: int, card: str) -> dict:
+    """A child process runs a segmented megakernel stream at
+    rmat(small_scale) and kills itself with SIGKILL in its snapshot hook;
+    this process resumes from the snapshots it left, and the result equals
+    the uninterrupted stream bit for bit."""
+    import os
+    import shutil
+    import signal
+
+    from repro_torch.graph import edge_delta_stream, rmat
+    from repro_torch.runtime import stream_execute
+
+    snap_dir = ROOT / "build" / "chip_smoke_sigkill"
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _KILLED_CHILD],
+        env=dict(os.environ, REPO=str(ROOT), SCALE=str(small_scale),
+                 KILL_AT="5", SNAP_DIR=str(snap_dir)),
+        capture_output=True, text=True, timeout=300)
+    child_secs = time.perf_counter() - t0
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the child was not killed: rc "
+                             f"{child.returncode}\n{child.stderr[-2000:]}")
+    base = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    deltas = edge_delta_stream(base, 4, 1024, seed=7)
+    cfg = algo_config("single.megakernel", workers=256)
+    kw = dict(params={"source": 0}, compact_every=2, overlay_slack=0.25)
+    whole = stream_execute("bfs", base, deltas, cfg, **kw)
+    resumed = stream_execute("bfs", base, deltas, cfg, snapshot_every=8,
+                             checkpoint_dir=str(snap_dir), keep=1000,
+                             resume=True, **kw)
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    at = resumed.info["resumed_at"]
+    if at is None or not same_leaves(resumed.state, whole.state) \
+            or records_of(resumed) != records_of(whole)[at:] \
+            or resumed.info["compactions"] != whole.info["compactions"]:
+        raise AssertionError(f"the stream resumed after SIGKILL differs: "
+                             f"{resumed.info} vs {whole.info}")
+    log(f"    SIGKILL at rmat({small_scale}): the child died in its snapshot "
+        f"hook ({child_secs:.1f} s); resumed here at batch {at}, result, "
+        f"state, records and compactions bit-identical to the "
+        f"uninterrupted stream  [{card}]")
+    return {"resumed_at": at, "child_seconds": child_secs}
+
+
+def streaming_path(graph, source: int, card: str, small_scale: int) -> dict:
+    """Phase 4g: ``stream_execute`` over a delta log of rmat's graph on the
+    card -- BFS, PageRank and coloring, each megakernel batch drain one
+    launch of its drain kernel's slotted mode -- and B3-slotted against
+    its plain version."""
+    from repro_torch.graph import edge_delta_stream
+    from repro_torch.stream import replay
+
+    t0 = time.perf_counter()
+    deltas = edge_delta_stream(graph, **STREAM)
+    gen_secs = time.perf_counter() - t0
+    final = replay(graph, deltas)
+    log(f"    edge_delta_stream {STREAM}: {[d.num_ops for d in deltas]} "
+        f"directed ops ({gen_secs:.2f} s); replayed final graph m="
+        f"{final.num_edges}; knobs {STREAM_KNOBS}")
+    out = {"deltas": [d.num_ops for d in deltas], "gen_seconds": gen_secs}
+    out["bfs"] = bfs_streams(graph, deltas, source, final, card)
+    out["pagerank"] = pagerank_stream(graph, deltas, final, card)
+    out["coloring"] = coloring_streams(graph, deltas, final, card)
+    view, slotted = slotted_view_after(graph, deltas[0])
+    canonical = slotted.to_csr()
+    log(f"    batch 1's slotted view: overlay {slotted.overlay_size}, slab "
+        f"array {view.slab_col.shape[0]} words for m={view.num_edges}")
+    out["first_rounds"] = {algo: slotted_first_rounds(algo, view, canonical,
+                                                      source, card)
+                           for algo in ("bfs", "pagerank", "coloring")}
+    out["whole"] = slotted_whole_drains(view, canonical, card)
+    out["overlay"] = slotted.overlay_size
+    del view, slotted, canonical
+    out["small"] = slotted_small(small_scale, card)
+    out["sigkill"] = sigkill_resume(small_scale, card)
+    return out
+
+
 # ------------------------------------------------------ B5, phases 3 and 6
 # (label, B, H, KVH, Sq, Skv, D, dtype, causal, window); the first is the
 # LM path's per-layer shape (minitron-4b prefill, B=2 x T=4096)
@@ -2436,6 +3029,7 @@ def main() -> int:
     n_push = budget + cfg.wavefront
     (items, mask), compact_err = check_compact(n_push, dev, rng)
     main_starts, stream_err = check_stream(graph, dev, rng)
+    slab_inputs, slab_err = check_stream_slotted(graph, budget, dev, rng)
     scatter_main, scatter_err, scatter_plain = check_scatter(graph, budget,
                                                             rng)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2525,6 +3119,11 @@ def main() -> int:
                              min(args.scale, 14))
     for path in (pr, col):
         path.pop("carry")
+    log(f"[4g] streaming graphs: stream_execute over {STREAM['num_batches']} "
+        f"delta batches of {STREAM['batch_size']} pairs on rmat({args.scale})"
+        f", BFS, PageRank and coloring, each megakernel batch drain one "
+        f"launch of its drain kernel's slotted mode")
+    stream = streaming_path(graph, source, card, min(args.scale, 14))
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -2542,6 +3141,9 @@ def main() -> int:
     # all three are reported by their event times, so that they compare.
     padded_main = torch.cat([graph.col_idx, graph.col_idx.new_zeros(4096)])
     window = torch.arange(4096, device=dev)
+    slab, slab_starts, slab_width = slab_inputs
+    padded_slab = torch.cat([slab, slab.new_zeros(slab_width)])
+    slab_window = torch.arange(slab_width, device=dev)
     versions = {
         "lbs": (lambda: lbs_cuda(main_scan, budget),
                 lambda: lbs_ref(main_scan, budget),
@@ -2553,6 +3155,10 @@ def main() -> int:
             lambda: stream_row_slices_cuda(graph.col_idx, main_starts, 4096),
             lambda: stream_row_slices_ref(graph.col_idx, main_starts, 4096),
             lambda: padded_main[main_starts[:, None].long() + window]),
+        "csr_stream.slotted": (
+            lambda: stream_row_slices_cuda(slab, slab_starts, slab_width),
+            lambda: stream_row_slices_ref(slab, slab_starts, slab_width),
+            lambda: padded_slab[slab_starts[:, None].long() + slab_window]),
         "ordered_scatter_add": (
             lambda: ordered_scatter_add_cuda(*scatter_main),
             lambda: ordered_scatter_add_ref(*scatter_main),
@@ -2571,6 +3177,7 @@ def main() -> int:
     bound_bytes = {"lbs": 4 * main_scan.shape[0] + 8 * budget,
                    "compact": 5 * n_push + 4 * n_push + 4,
                    "csr_stream": 4 * 4096 + 2 * 4 * 4096 * 4096,
+                   "csr_stream.slotted": 4 * 48 + 2 * 4 * 48 * slab_width,
                    "ordered_scatter_add": 8 * scatter_main[1].shape[0]
                    + 8 * graph.num_vertices}
 
@@ -2726,6 +3333,25 @@ def main() -> int:
     kernels[-1]["launched_in"] = (f"bfs_drain: {mega['units']} units "
                                   f"staged through csr_stream.cuh")
     kernels[-1]["wrapper_launches"] = mega["counts"]["csr_stream"]
+    (kd, pd, ld), timed_by, (ke, pe, le) = times["csr_stream.slotted"]
+    kernels.append({
+        "name": "csr_stream.slotted", "route": "cuda",
+        "source": "src/repro_torch/csrc/csr_stream.cu",
+        "replaces": "src/repro/kernels/drain_loop/csr_stream.py:147 (the "
+                    "overlay arm over stream_row_slices, :72)",
+        "launches": stream["bfs"]["cells"]["single.megakernel"]["counts"][
+            "bfs_drain"],
+        "launched_in": "bfs_drain.slotted on the streaming path: each "
+                       "unit's slab word staged through csr_stream.cuh",
+        "wrapper_launches": 0,
+        "bit_equal": slab_err == 0, "max_abs_err": slab_err,
+        "ms": kd, "plain_ms": pd,
+        "bound_ms": 1e3 * bound_bytes["csr_stream.slotted"]
+        / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": ld,
+        "timed_by": timed_by, "event_ms": ke, "plain_event_ms": pe,
+        "library_event_ms": le,
+        "shape": f"48 starts from slab_ptr, width {slab_width} "
+                 f"(SLAB_SLACK x (budget + 1)) of the slab array"})
     kernels.append({
         "name": "bfs_drain", "route": "cuda",
         "source": "src/repro_torch/csrc/bfs_drain.cu",
@@ -2911,7 +3537,42 @@ def main() -> int:
                             if mode == "fused" else
                             f"single.megakernel with a "
                             f"[{TRACE_CAPACITY}, 13] trace ring")})
-    timed_alone = ("lbs", "compact", "csr_stream", "ordered_scatter_add")
+    stream_launches = {
+        "bfs": stream["bfs"]["cells"]["single.megakernel"]["counts"],
+        "pagerank": stream["pagerank"]["counts"],
+        "coloring": stream["coloring"]["recolor"]["counts"]}
+    for algo, name in DRAINS.items():
+        first = stream["first_rounds"][algo]
+        whole = stream["whole"].get(algo)
+        kernels.append({
+            "name": f"{name}.slotted", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": "src/repro/kernels/drain_loop/kernel.py:82 with "
+                        "csr_stream.py:147 (the overlay arm)",
+            "launches": stream_launches[algo][name],
+            "bit_equal": first["max_abs_err"] == 0,
+            "max_abs_err": first["max_abs_err"],
+            "tolerance": f"bitwise against {first['held_against']} over "
+                         f"these rounds; the streams against scipy, cold "
+                         f"drains and one another",
+            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": 1e3 * first["bound_bytes"] / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "library_ms": None,
+            "timed_by": first["timed_by"],
+            "timed_over": f"the first {first['rounds']} rounds of a cold "
+                          f"drain on batch 1's slotted view of "
+                          f"rmat({args.scale})",
+            "paired_ms": first["paired_ms"],
+            "canonical_ms": first["canonical_ms"],
+            "paired_timed_by": first["paired_timed_by"],
+            "drain_ms": None if whole is None else whole["slotted_ms"],
+            "canonical_drain_ms": (None if whole is None
+                                   else whole["canonical_ms"]),
+            "drain_timed_by": None if whole is None else whole["timed_by"],
+            "shape": f"rmat({args.scale}) after one delta batch, overlay "
+                     f"{stream['overlay']} entries, W={cfg.wavefront}, g1"})
+    timed_alone = ("lbs", "compact", "csr_stream", "csr_stream.slotted",
+                   "ordered_scatter_add")
     for kern in (k for k in kernels if k["name"] in timed_alone):
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
             f"{kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
@@ -2947,6 +3608,7 @@ def main() -> int:
         "coloring": col,
         "wide": wide,
         "fused_traced": fused,
+        "streaming": stream,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

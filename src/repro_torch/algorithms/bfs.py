@@ -107,7 +107,7 @@ def make_wavefront_fn(graph: CSRGraph, strategy: str, work_budget: int,
     """
     codec = codec or ChunkCodec(1)
     g = codec.granularity
-    rp, cols, _ = adjacency_of(graph)
+    rp, cols, overlay = adjacency_of(graph)
 
     def f(items, valid, state: BFSState):
         safe = torch.where(valid, items, 0)
@@ -115,7 +115,7 @@ def make_wavefront_fn(graph: CSRGraph, strategy: str, work_budget: int,
         if strategy == "merge_path":      # CTA worker: task+data-parallel LB
             ex = expand_merge_path(heads, valid, rp, cols, work_budget,
                                    backend=backend, widths=widths,
-                                   max_width=g)
+                                   max_width=g, overlay=overlay)
             # chunks whose rows spill past the work budget are re-queued
             # whole; the first popped task always expands fully.
             deg = chunk_degrees(heads, widths, valid, rp)
@@ -124,7 +124,8 @@ def make_wavefront_fn(graph: CSRGraph, strategy: str, work_budget: int,
             live = ex.valid & ~truncated[ex.owner]
         else:                             # warp worker: task-parallel only
             flat_v, flat_valid, _ = flatten_chunks(heads, widths, valid, g)
-            ex = expand_per_item(flat_v, flat_valid, rp, cols, max_degree)
+            ex = expand_per_item(flat_v, flat_valid, rp, cols, max_degree,
+                                 overlay=overlay)
             truncated = torch.zeros_like(valid)
             live = ex.valid
         dist = state.dist
@@ -198,9 +199,10 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                           max_rounds: int):
         from ..kernels.drain_loop.bfs_drain import bfs_drain_cuda  # lazy
 
+        rp, cols, overlay = adjacency_of(body_graph)
+
         def run(carry, limit=None):
-            return bfs_drain_cuda(carry, body_graph.row_ptr,
-                                  body_graph.col_idx,
+            return bfs_drain_cuda(carry, rp, cols, overlay=overlay,
                                   wavefront=ctx.wavefront, budget=budget,
                                   max_rounds=max_rounds, limit=limit,
                                   granularity=codec.granularity,
@@ -209,6 +211,12 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                                   max_chunk_degree=chunk_units)
 
         return run
+
+    def dirty_seeds(applied, state):
+        from ..stream.incremental import bfs_dirty_seeds  # lazy
+
+        return bfs_dirty_seeds(applied, state, codec=codec,
+                               split_threshold=threshold)
 
     return AtosProgram(
         name="bfs",
@@ -221,6 +229,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         ideal_work=n,
         default_queue_capacity=queue_capacity or max(4 * n, 1024),
         make_drain_kernel=make_drain_kernel,
+        dirty_seeds=dirty_seeds,
     )
 
 

@@ -35,7 +35,8 @@ from ..core.frontier import search_for
 from ..graph.csr import CSRGraph
 from ..runtime.program import AtosProgram, ProgramContext
 from ..runtime.programs import reject_unknown_params
-from .common import chunking_for, edge_sources, max_degree_of, scatter_set
+from .common import (chunking_for, edge_sources, edge_targets, max_degree_of,
+                     scatter_set)
 
 _I32 = torch.int32
 _U32 = 0xFFFFFFFF
@@ -63,9 +64,9 @@ def _gather_neighbor_colors(graph: CSRGraph, vids: torch.Tensor,
     (``owner`` = lane, ``src`` = row, ``nbr`` = neighbor).  ``budget`` must
     be at least the rows' degree sum; no unit is dropped.  Coloring gathers
     flat on every cell, a megakernel body's too."""
-    rp, cols, _ = adjacency_of(graph)
+    rp, cols, overlay = adjacency_of(graph)
     return expand_merge_path(vids, valid, rp, cols, budget,
-                             backend=unstreamed(backend))
+                             backend=unstreamed(backend), overlay=overlay)
 
 
 def _min_free_color(colors: torch.Tensor, ex: Expansion, deg: torch.Tensor,
@@ -133,9 +134,10 @@ def _conflicts(colors: torch.Tensor, vids: torch.Tensor,
 
 def _edge_expansion(graph: CSRGraph, rows: torch.Tensor) -> Expansion:
     """Every CSR edge as a unit of its source row, valid where ``rows``
-    holds at the source."""
+    holds at the source (a slotted view's edges through the two-level
+    gather)."""
     src = edge_sources(graph, _I32)
-    return Expansion(src=src, nbr=graph.col_idx, owner=src,
+    return Expansion(src=src, nbr=edge_targets(graph), owner=src,
                      valid=rows[src.long()],
                      total=torch.tensor(graph.num_edges, dtype=_I32,
                                         device=graph.device))
@@ -249,15 +251,19 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                  **params) -> AtosProgram:
     """Speculative greedy coloring as one :class:`AtosProgram`.
 
-    Takes no ``params``: the streaming rule ``dirty`` comes with its
-    streaming hook, ROADMAP A9.  The megakernel cell runs the drain kernel
-    B3-col (``kernels/drain_loop/coloring_drain``) at every granularity.
+    ``params``: ``dirty`` picks the streaming rule: ``"conflicts"`` (the
+    default) keeps the carried colors and re-colors only the losing
+    endpoints of inserted same-colored edges (a valid coloring for little
+    work, but not the one a cold drain gives); ``"recolor"`` has no rule,
+    so a delta batch re-seeds in full (bit-identical to a cold drain).  The
+    megakernel cell runs the drain kernel B3-col
+    (``kernels/drain_loop/coloring_drain``) at every granularity.
     """
-    if "dirty" in params:
-        raise NotImplementedError(
-            "coloring's streaming rule 'dirty' comes with the streaming "
-            "slice, ROADMAP A9")
+    dirty = params.pop("dirty", "conflicts")
     reject_unknown_params("coloring", params)
+    if dirty not in ("conflicts", "recolor"):
+        raise ValueError(f"coloring dirty mode must be 'conflicts' or "
+                         f"'recolor', got {dirty!r}")
     n = graph.num_vertices
     codec, threshold = chunking_for(cfg)
     budget = flat_budget(graph, cfg.wavefront * cfg.granularity)
@@ -274,9 +280,10 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         from ..kernels.drain_loop.coloring_drain import (  # lazy
             coloring_drain_cuda)
 
+        rp, cols, overlay = adjacency_of(body_graph)
+
         def run(carry, limit=None):
-            return coloring_drain_cuda(carry, body_graph.row_ptr,
-                                       body_graph.col_idx,
+            return coloring_drain_cuda(carry, rp, cols, overlay=overlay,
                                        wavefront=ctx.wavefront,
                                        max_degree=max_degree,
                                        max_rounds=max_rounds, limit=limit,
@@ -284,6 +291,12 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                                        split_threshold=threshold)
 
         return run
+
+    def conflict_seeds(applied, state):
+        from ..stream.incremental import coloring_dirty_seeds  # lazy
+
+        return coloring_dirty_seeds(applied, state, codec=codec,
+                                    split_threshold=threshold)
 
     return AtosProgram(
         name="coloring",
@@ -295,6 +308,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         ideal_work=n,
         default_queue_capacity=queue_capacity or max(4 * n, 1024),
         make_drain_kernel=make_drain_kernel,
+        dirty_seeds=conflict_seeds if dirty == "conflicts" else None,
     )
 
 
@@ -319,4 +333,4 @@ def validate_coloring(graph: CSRGraph, colors: torch.Tensor) -> bool:
     if bool((colors < 0).any()):
         return False
     src = edge_sources(graph)
-    return bool((colors[src] != colors[graph.col_idx.long()]).all())
+    return bool((colors[src] != colors[edge_targets(graph).long()]).all())

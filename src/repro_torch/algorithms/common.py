@@ -96,6 +96,14 @@ def mark(n: int, index: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                        index, mask, mask)
 
 
+def edge_targets(graph) -> torch.Tensor:
+    """[m] int32 neighbor of every edge in CSR order: a canonical graph's
+    ``col_idx``, or a slotted view's two-level gather of every edge."""
+    if getattr(graph, "overlay", None) is None:
+        return graph.col_idx
+    return graph.edge_targets()
+
+
 def edge_sources(graph: CSRGraph, dtype=torch.int64) -> torch.Tensor:
     """[m] source vertex of every CSR edge."""
     return torch.repeat_interleave(

@@ -14,8 +14,8 @@ the reference's bit for bit and the same from run to run on the card.
 Duplicate wavefront entries are de-duplicated by keeping the first
 occurrence of each chunk head (the GPU's ``atomicExch`` semantics).
 
-The single-device branch: the rescan block of the sharded topology, the
-replica-merge spec and ``dirty_seeds`` come with ROADMAP A12 and A9.
+The single-device branch: the rescan block of the sharded topology and
+the replica-merge spec come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def _push_wavefront(graph: CSRGraph, damping: float, work_budget: int,
     contribution reads its own member row's residue and degree."""
     codec = codec or ChunkCodec(1)
     g = codec.granularity
-    rp, cols, _ = adjacency_of(graph)
+    rp, cols, overlay = adjacency_of(graph)
 
     def push(items, valid, state: PRState):
         n = state.rank.shape[0]
@@ -88,7 +88,8 @@ def _push_wavefront(graph: CSRGraph, damping: float, work_budget: int,
         in_queue = torch.where(popped & ~trunc_mask, False, state.in_queue)
 
         ex = expand_merge_path(heads, process, rp, cols, work_budget,
-                               backend=backend, widths=widths, max_width=g)
+                               backend=backend, widths=widths, max_width=g,
+                               overlay=overlay)
         # each edge's contribution from its own source row, read pre-harvest
         src = ex.src.long()
         row_deg = torch.clamp(rp[src + 1] - rp[src], min=1).to(_F32)
@@ -297,14 +298,23 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         from ..kernels.drain_loop.pagerank_drain import (  # lazy
             pagerank_drain_cuda)
 
+        rp, cols, overlay = adjacency_of(body_graph)
+
         def run(carry, limit=None):
             return pagerank_drain_cuda(
-                carry, body_graph.row_ptr, body_graph.col_idx,
-                wavefront=ctx.wavefront, budget=budget, n_check=n_check,
-                damping=damping, eps=eps, max_rounds=max_rounds, limit=limit,
+                carry, rp, cols, overlay=overlay, wavefront=ctx.wavefront,
+                budget=budget, n_check=n_check, damping=damping, eps=eps,
+                max_rounds=max_rounds, limit=limit,
                 granularity=codec.granularity, split_threshold=threshold)
 
         return run
+
+    def dirty_seeds(applied, state):
+        from ..stream.incremental import pagerank_dirty_seeds  # lazy
+
+        return pagerank_dirty_seeds(applied, state, damping=damping,
+                                    eps=eps, codec=codec,
+                                    split_threshold=threshold)
 
     return AtosProgram(
         name="pagerank",
@@ -319,6 +329,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         ideal_work=n,
         default_queue_capacity=capacity,
         make_drain_kernel=make_drain_kernel,
+        dirty_seeds=dirty_seeds,
     )
 
 

@@ -19,10 +19,11 @@ from .core.counters import WorkCounter
 from .core.queue import TaskQueue
 from .core.tree import to_numpy
 from .graph.csr import CSRGraph
+from .graph.slotted import SlottedView
 
-__all__ = ["graph_from_numpy", "queue_from_numpy", "bfs_state_from_numpy",
-           "pagerank_state_from_numpy", "coloring_state_from_numpy",
-           "params_from_numpy", "to_numpy"]
+__all__ = ["graph_from_numpy", "slotted_view_from_numpy", "queue_from_numpy",
+           "bfs_state_from_numpy", "pagerank_state_from_numpy",
+           "coloring_state_from_numpy", "params_from_numpy", "to_numpy"]
 
 
 def _int32(x, device) -> torch.Tensor:
@@ -33,6 +34,20 @@ def graph_from_numpy(row_ptr, col_idx, device="cuda") -> CSRGraph:
     device = resolve_device(device)
     return CSRGraph(row_ptr=_int32(row_ptr, device),
                     col_idx=_int32(col_idx, device))
+
+
+def slotted_view_from_numpy(row_ptr, slab_ptr, slab_len, slab_col, ovl_ptr,
+                            ovl_col, m, device="cuda") -> SlottedView:
+    """A slotted view (``graph.slotted.SlottedView``) from the reference's
+    ``SlottedView`` arrays, so both packages drain the same slotted
+    graph."""
+    device = resolve_device(device)
+    return SlottedView(row_ptr=_int32(row_ptr, device),
+                       slab_ptr=_int32(slab_ptr, device),
+                       slab_len=_int32(slab_len, device),
+                       slab_col=_int32(slab_col, device),
+                       ovl_ptr=_int32(ovl_ptr, device),
+                       ovl_col=_int32(ovl_col, device), m=int(m))
 
 
 def queue_from_numpy(buf, head, tail, dropped, device="cuda") -> TaskQueue:

@@ -12,10 +12,16 @@ as its plain version or, for CUDA tensors, as the hand-written LBS kernel
 (``kernels/frontier_expand``); the glue around the search is shared, and
 both give identical outputs.
 
+A slotted graph (``graph/slotted.py``) gathers in two levels:
+:func:`adjacency_of` gives its slab array and an ``Overlay``, and
+:func:`gather_neighbors` reads a row's slab prefix and then its overlay
+tail.  The search never reads neighbors, so the LBS kernel serves slotted
+graphs unchanged; the gather after it swaps the flat read for the
+two-level one, as in the reference's Pallas wrapper.
+
 JAX clamps out-of-range gathers silently; PyTorch raises on the CPU and is
 undefined on CUDA.  Every gather below whose index the reference lets run
-out of range is clamped explicitly.  The slotted-graph overlay arm of
-:func:`gather_neighbors` comes with the streaming slice.
+out of range is clamped explicitly.
 """
 from __future__ import annotations
 
@@ -30,13 +36,6 @@ from .backend import STREAMS, resolve_backend
 _I32 = torch.int32
 
 
-def _no_overlay(overlay) -> None:
-    if overlay is not None:
-        raise NotImplementedError(
-            "slotted graphs (an edge-log overlay) come with the streaming "
-            "slice, ROADMAP A9")
-
-
 def searchsorted_right(sorted_arr: torch.Tensor,
                        values: torch.Tensor) -> torch.Tensor:
     """Vectorized upper_bound: int32 index of the first element > value."""
@@ -44,19 +43,38 @@ def searchsorted_right(sorted_arr: torch.Tensor,
 
 
 def adjacency_of(graph):
-    """``(row_ptr, cols, overlay)`` of a canonical CSR graph."""
+    """``(row_ptr, cols, overlay)`` of a canonical or slotted graph: a
+    canonical CSR gives its ``col_idx`` and ``None``, a ``SlottedView`` its
+    slab array and its ``Overlay``.  ``row_ptr`` is canonical either way."""
     overlay = getattr(graph, "overlay", None)
-    _no_overlay(overlay)
-    return graph.row_ptr, graph.col_idx, None
+    if overlay is None:
+        return graph.row_ptr, graph.col_idx, None
+    return graph.row_ptr, graph.slab_col, overlay
+
+
+def _clamped(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    return values[torch.clamp(index, 0, values.shape[0] - 1)]
 
 
 def gather_neighbors(row_ptr: torch.Tensor, cols: torch.Tensor,
                      src: torch.Tensor, edge: torch.Tensor,
                      overlay=None) -> torch.Tensor:
-    """Neighbor id at flat canonical edge index ``edge`` (clamped into
-    ``[0, m)`` as JAX's gather clamps it)."""
-    _no_overlay(overlay)
-    return cols[torch.clamp(edge, 0, cols.shape[0] - 1)]
+    """Neighbor id at flat canonical edge index ``edge`` of row ``src``.
+
+    Without an overlay, the flat gather (clamped into ``[0, m)`` as JAX's
+    gather clamps it).  With one, the in-row offset ``edge - row_ptr[src]``
+    reads the row's slab prefix while below ``slab_len[src]`` and its
+    overlay tail past it; both are sorted and the prefix lies below the
+    tail, so the result equals the canonical gather.  Broadcasts over any
+    matching ``src`` / ``edge`` shape.
+    """
+    if overlay is None:
+        return _clamped(cols, edge)
+    off = edge - row_ptr[src]
+    s_len = overlay.slab_len[src]
+    s_val = _clamped(cols, overlay.slab_ptr[src] + off)
+    o_val = _clamped(overlay.ovl_col, overlay.ovl_ptr[src] + off - s_len)
+    return torch.where(off < s_len, s_val, o_val)
 
 
 class Expansion(NamedTuple):
@@ -112,13 +130,14 @@ def inclusive_scan(deg: torch.Tensor):
 
 
 def lbs_expansion(search, items, valid, row_ptr, col_idx, budget: int,
-                  widths=None, max_width: int = 1) -> Expansion:
+                  widths=None, max_width: int = 1,
+                  overlay=None) -> Expansion:
     """The merge-path expansion around a load-balancing ``search``
     (``scan, budget -> (owner, rank)``, the contract of ``lbs_ref``): the
     chunk degrees and their scan before it, and after it each unit's source
-    row and neighbor, masked to the first ``total`` units.  ``rank`` is
-    garbage past ``total``; the gathers it feeds are clamped and their
-    results masked."""
+    row and neighbor (the two-level gather with an ``overlay``), masked to
+    the first ``total`` units.  ``rank`` is garbage past ``total``; the
+    gathers it feeds are clamped and their results masked."""
     safe = torch.where(valid, items, 0)
     deg = chunk_degrees(items, widths, valid, row_ptr)
     scan, total = inclusive_scan(deg)
@@ -130,7 +149,7 @@ def lbs_expansion(search, items, valid, row_ptr, col_idx, budget: int,
     k = torch.arange(budget, dtype=_I32, device=safe.device)
     in_range = k < total
     edge = row_ptr[head] + rank
-    nbr = gather_neighbors(row_ptr, col_idx, src, edge)
+    nbr = gather_neighbors(row_ptr, col_idx, src, edge, overlay=overlay)
     return Expansion(
         src=torch.where(in_range, src, 0),
         nbr=torch.where(in_range, nbr, 0),
@@ -164,24 +183,23 @@ def expand_merge_path(items: torch.Tensor, valid: torch.Tensor,
         return expand_stream(items, valid, row_ptr, col_idx, work_budget,
                              widths=widths, max_width=max_width,
                              overlay=overlay, backend=STREAMS[backend])
-    _no_overlay(overlay)
     return lbs_expansion(search_for(backend, row_ptr), items, valid, row_ptr,
-                         col_idx, work_budget, widths, max_width)
+                         col_idx, work_budget, widths, max_width, overlay)
 
 
 def expand_per_item(items: torch.Tensor, valid: torch.Tensor,
                     row_ptr: torch.Tensor, col_idx: torch.Tensor,
                     max_degree: int, overlay=None) -> Expansion:
     """Warp-style expansion: one padded neighbor loop per popped item,
-    giving a ``[n_items * max_degree]`` work list."""
-    _no_overlay(overlay)
+    giving a ``[n_items * max_degree]`` work list (the two-level gather
+    with an ``overlay``)."""
     safe = torch.where(valid, items, 0)
     deg = chunk_degrees(items, None, valid, row_ptr)
     j = torch.arange(max_degree, dtype=_I32, device=items.device)
     edge = row_ptr[safe][:, None] + j[None, :]          # [n, max_degree]
     in_range = j[None, :] < deg[:, None]
     src = safe[:, None].expand(edge.shape)
-    nbr = gather_neighbors(row_ptr, col_idx, src, edge)
+    nbr = gather_neighbors(row_ptr, col_idx, src, edge, overlay=overlay)
     owner = torch.arange(items.shape[0], dtype=_I32,
                          device=items.device)[:, None].expand(edge.shape)
     return Expansion(

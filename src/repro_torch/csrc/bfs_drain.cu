@@ -76,8 +76,12 @@
 // task packed with job 0 (drain_common.cuh's lane_load / lane_store), which
 // is what runtime/api.fused_lane_ops does around the same body.  The traced
 // mode (B3-traced) writes one trace row a round from block 0 after the
-// round's last barrier (drain_common.cuh's Tracer).  Each mode is a
-// template argument, so the single, untraced instances are unchanged.
+// round's last barrier (drain_common.cuh's Tracer).  The slotted mode
+// (B3-slotted) drains a streaming graph's slotted view: col_idx is its slab
+// array, and a unit's word is the slab or overlay word of its member row at
+// its in-row offset (drain_common.cuh's Slotted), staged through the same
+// stream.  Each mode is a template argument, so the single, untraced,
+// canonical instances are unchanged.
 //
 // What bounds the drain on an H100: bytes, about 8 bytes per expanded edge
 // (its col_idx word and dist[nbr]) plus the ring traffic, and the grid
@@ -101,8 +105,9 @@ struct Drain {
   int* dist;  // [n] hop distances, updated in place
   int n;
   const int* row_ptr;  // [n + 1]
-  const int* col_idx;  // [m]
+  const int* col_idx;  // [m]; the slab array in the slotted mode
   int m;
+  Slotted slotted;     // the slotted mode's slab and overlay arrays
   int* cursors;  // [kCursors]
   int wavefront;
   int budget;  // INT_MAX for per_item: no truncation, L = total
@@ -129,8 +134,8 @@ struct Unit {
 
 // kChunks = false is the G = 1 instance, whose codec is the compile-time
 // identity: no multiplication or division by G, no window code.  kPacked is
-// the fused mode, kTraced the traced mode.
-template <bool kChunks, bool kPacked, bool kTraced>
+// the fused mode, kTraced the traced mode, kSlotted the slotted mode.
+template <bool kChunks, bool kPacked, bool kTraced, bool kSlotted>
 __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
   extern __shared__ int dyn[];
   __shared__ int ring[csr_stream::kStages][kThreads];
@@ -215,9 +220,17 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
     auto kept_target = [&](int u) {
       int owner, rank, chead, width;
       locate(u, owner, rank, chead, width);
-      const long long e =
-          csr_stream::slice_start(__ldg(d.row_ptr + chead), d.m) + rank;
-      const int nbr = e < d.m ? __ldg(d.col_idx + e) : 0;
+      int nbr;
+      if constexpr (kSlotted) {
+        const int src = chunk_row_of(d.row_ptr, chead, rank, width, d.n);
+        nbr = slotted_word(d.slotted, d.col_idx, src,
+                           wrap_sub(wrap_add(__ldg(d.row_ptr + chead), rank),
+                                    __ldg(d.row_ptr + src)));
+      } else {
+        const long long e =
+            csr_stream::slice_start(__ldg(d.row_ptr + chead), d.m) + rank;
+        nbr = e < d.m ? __ldg(d.col_idx + e) : 0;
+      }
       return __ldcg(d.first_unit + nbr) == (stamp | static_cast<unsigned>(u))
                  ? nbr
                  : -1;
@@ -232,10 +245,16 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
         int rank, chead, width;
         locate(u, unit.owner, rank, chead, width);
         unit.src = chunk_row_of(d.row_ptr, chead, rank, width, d.n);
-        const long long start =
-            csr_stream::slice_start(__ldg(d.row_ptr + chead), d.m);
-        csr_stream::stage_element(&ring[slot][tid], d.col_idx, d.m,
-                                  start + clamp_to(rank, 0, d.budget - 1));
+        if constexpr (kSlotted) {
+          stage_slotted(&ring[slot][tid], d.slotted, d.col_idx, unit.src,
+                        wrap_sub(wrap_add(__ldg(d.row_ptr + chead), rank),
+                                 __ldg(d.row_ptr + unit.src)));
+        } else {
+          const long long start =
+              csr_stream::slice_start(__ldg(d.row_ptr + chead), d.m);
+          csr_stream::stage_element(&ring[slot][tid], d.col_idx, d.m,
+                                    start + clamp_to(rank, 0, d.budget - 1));
+        }
       }
       csr_stream::commit_stage();
       return unit;
@@ -360,29 +379,36 @@ __global__ void __launch_bounds__(kThreads, 1) bfs_drain(Drain d) {
 }
 
 // The instance of a granularity and mode.
-template <bool kChunks, bool kPacked>
+template <bool kChunks, bool kPacked, bool kSlotted>
 const void* instance(bool traced) {
-  return traced
-             ? reinterpret_cast<const void*>(bfs_drain<kChunks, kPacked, true>)
-             : reinterpret_cast<const void*>(
-                   bfs_drain<kChunks, kPacked, false>);
+  return traced ? reinterpret_cast<const void*>(
+                      bfs_drain<kChunks, kPacked, true, kSlotted>)
+                : reinterpret_cast<const void*>(
+                      bfs_drain<kChunks, kPacked, false, kSlotted>);
 }
 
-const void* kernel_for(int granularity, bool packed, bool traced) {
+template <bool kSlotted>
+const void* instance_of(int granularity, bool packed, bool traced) {
   if (granularity > 1) {
-    return packed ? instance<true, true>(traced)
-                  : instance<true, false>(traced);
+    return packed ? instance<true, true, kSlotted>(traced)
+                  : instance<true, false, kSlotted>(traced);
   }
-  return packed ? instance<false, true>(traced)
-                : instance<false, false>(traced);
+  return packed ? instance<false, true, kSlotted>(traced)
+                : instance<false, false, kSlotted>(traced);
+}
+
+const void* kernel_for(int granularity, bool packed, bool traced,
+                       bool slotted) {
+  return slotted ? instance_of<true>(granularity, packed, traced)
+                 : instance_of<false>(granularity, packed, traced);
 }
 
 // The launch plan for a wavefront of W at granularity G in a mode: dynamic
 // shared memory (0 when the wavefront goes to global scratch) and the
 // co-resident grid of that instance.
-cudaError_t plan(int W, int granularity, bool packed, bool traced, size_t* dyn,
-                 int* grid) {
-  const void* kernel = kernel_for(granularity, packed, traced);
+cudaError_t plan(int W, int granularity, bool packed, bool traced,
+                 bool slotted, size_t* dyn, int* grid) {
+  const void* kernel = kernel_for(granularity, packed, traced, slotted);
   DeviceInfo info;
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
@@ -399,14 +425,15 @@ cudaError_t plan(int W, int granularity, bool packed, bool traced, size_t* dyn,
 }  // namespace
 
 // The grid the launch takes for a wavefront of W at granularity G in a mode
-// (packed: the fused mode; traced: the traced mode), and whether the
-// wavefront lives in shared memory (1) or in global scratch of grid * 2 W
-// ints (0).  Returns the cudaError_t (0 on success).
+// (packed: the fused mode; traced: the traced mode; slotted: the slotted
+// mode), and whether the wavefront lives in shared memory (1) or in global
+// scratch of grid * 2 W ints (0).  Returns the cudaError_t (0 on success).
 extern "C" int bfs_drain_grid(int wavefront, int granularity, int packed,
-                              int traced, int* grid, int* wave_in_shared) {
+                              int traced, int slotted, int* grid,
+                              int* wave_in_shared) {
   size_t dyn = 0;
-  const cudaError_t err =
-      plan(wavefront, granularity, packed != 0, traced != 0, &dyn, grid);
+  const cudaError_t err = plan(wavefront, granularity, packed != 0,
+                               traced != 0, slotted != 0, &dyn, grid);
   if (err != cudaSuccess) return err;
   *wave_in_shared = dyn > 0;
   return cudaSuccess;
@@ -422,10 +449,14 @@ extern "C" int bfs_drain_grid(int wavefront, int granularity, int packed,
 // the split threshold (INT_MAX for none).  `packed` selects the fused mode
 // (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
 // mode, with its [trace_capacity][13] rows and one-int cursor, both updated
-// in place.  Returns the cudaError_t of the launch (0 on success).
+// in place; a non-null `slab_ptr` the slotted mode, where col_idx is the
+// slab array of m words and slab_len, ovl_ptr and ovl_col the rest of the
+// slotted view.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int bfs_drain_launch(
     int* buf, int cap, int* dist, int n, const int* row_ptr,
-    const int* col_idx, int m, int* cursors, int wavefront, int budget,
+    const int* col_idx, int m, const int* slab_ptr, const int* slab_len,
+    const int* ovl_ptr, const int* ovl_col, int* cursors, int wavefront,
+    int budget,
     int stored, int max_rounds, int granularity, int width_bits,
     int threshold, int* unit_nbr, unsigned long long* first_unit,
     unsigned long long* best, unsigned long long* windows,
@@ -435,12 +466,17 @@ extern "C" int bfs_drain_launch(
   size_t dyn = 0;
   int most = 0;
   const bool traced = trace != nullptr;
+  const bool slotted = slab_ptr != nullptr;
   if (granularity < 1 || granularity > 64) return cudaErrorInvalidValue;
   if (traced && (trace_capacity < 1 || trace_cursor == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err =
-      plan(wavefront, granularity, packed != 0, traced, &dyn, &most);
+  if (slotted && (slab_len == nullptr || ovl_ptr == nullptr ||
+                  ovl_col == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = plan(wavefront, granularity, packed != 0, traced, slotted,
+                         &dyn, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorInvalidValue;
   if ((dyn == 0) != (wave_global != nullptr)) return cudaErrorInvalidValue;
@@ -453,6 +489,7 @@ extern "C" int bfs_drain_launch(
   d.row_ptr = row_ptr;
   d.col_idx = col_idx;
   d.m = m;
+  d.slotted = Slotted{slab_ptr, slab_len, ovl_ptr, ovl_col};
   d.cursors = cursors;
   d.wavefront = wavefront;
   d.budget = budget;
@@ -471,7 +508,7 @@ extern "C" int bfs_drain_launch(
   d.trace = TraceRing{trace, trace_capacity, trace_cursor};
   void* args[] = {&d};
   err = cudaLaunchCooperativeKernel(
-      kernel_for(granularity, packed != 0, traced), dim3(grid),
+      kernel_for(granularity, packed != 0, traced, slotted), dim3(grid),
       dim3(kThreads), args, dyn, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -46,8 +46,11 @@
 // task packed with job 0 (drain_common.cuh's lane_load / lane_store), which
 // is what runtime/api.fused_lane_ops does around the same body.  The traced
 // mode (B3-traced) writes one trace row a round from block 0 after the
-// round's last barrier (drain_common.cuh's Tracer).  Each mode is a
-// template argument, so the single, untraced instances are unchanged.
+// round's last barrier (drain_common.cuh's Tracer).  The slotted mode
+// (B3-slotted) drains a streaming graph's slotted view: col_idx is its slab
+// array, and the j-th neighbor of a row is its slab or overlay word at
+// offset j (drain_common.cuh's Slotted).  Each mode is a template argument,
+// so the single, untraced, canonical instances are unchanged.
 //
 // What bounds the drain on an H100: bytes, 8 per neighbor visited (its
 // col_idx word and its color) for every assign and every detect, and the
@@ -71,7 +74,8 @@ struct Drain {
   int* colors;  // [n] updated in place
   int n;
   const int* row_ptr;  // [n + 1]
-  const int* col_idx;  // [m]
+  const int* col_idx;  // [m]; the slab array in the slotted mode
+  Slotted slotted;     // the slotted mode's slab and overlay arrays
   int* cursors;        // [kCursors]
   int wavefront;
   int max_rounds;
@@ -114,11 +118,21 @@ __device__ __forceinline__ int code_of(int item) {
   return item > 0 ? item - 1 : wrap_sub(-1, item);
 }
 
+// The j-th neighbor of row v, whose canonical run starts at lo.
+template <bool kSlotted>
+__device__ __forceinline__ int neighbor(const Drain& d, int lo, int v, int j) {
+  if constexpr (kSlotted) {
+    return slotted_word(d.slotted, d.col_idx, v, j);
+  } else {
+    return __ldg(d.col_idx + lo + j);
+  }
+}
+
 // Two blocks an SM where shared memory allows: at most 64 registers a
 // thread.  kChunks = false is the G = 1 instance, whose codec is the
 // compile-time identity: no division by G, no window code.  kPacked is the
-// fused mode, kTraced the traced mode.
-template <bool kChunks, bool kPacked, bool kTraced>
+// fused mode, kTraced the traced mode, kSlotted the slotted mode.
+template <bool kChunks, bool kPacked, bool kTraced, bool kSlotted>
 __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   extern __shared__ int dyn[];
   __shared__ unsigned warp_bits[kWarps][32];
@@ -220,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
       bits[lane] = 0u;
       __syncwarp();
       for (int j = lane; j < deg; j += 32) {
-        const int c = __ldcg(d.colors + __ldg(d.col_idx + lo + j));
+        const int c = __ldcg(d.colors + neighbor<kSlotted>(d, lo, v, j));
         if (c >= 0 && c <= deg) atomicOr(bits + (c >> 5), 1u << (c & 31));
       }
       __syncwarp();
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
       if (tid == 0) s_pick = INT_MAX;
       __syncthreads();
       for (int j = tid; j < deg; j += kThreads) {
-        const int c = __ldcg(d.colors + __ldg(d.col_idx + lo + j));
+        const int c = __ldcg(d.colors + neighbor<kSlotted>(d, lo, v, j));
         if (c >= 0 && c <= deg) atomicOr(big + (c >> 5), 1u << (c & 31));
       }
       __syncthreads();
@@ -288,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
       bool clash = false;
       if (my >= 0) {
         for (int j = lane; j < deg; j += 32) {
-          const int u = __ldg(d.col_idx + lo + j);
+          const int u = neighbor<kSlotted>(d, lo, v, j);
           clash |= __ldcg(d.colors + u) == my &&
                    beats(u, priority(static_cast<unsigned>(u)), v, pv);
         }
@@ -314,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
       if (my >= 0) {
         bool clash = false;
         for (int j = tid; j < deg; j += kThreads) {
-          const int u = __ldg(d.col_idx + lo + j);
+          const int u = neighbor<kSlotted>(d, lo, v, j);
           clash |= __ldcg(d.colors + u) == my &&
                    beats(u, priority(static_cast<unsigned>(u)), v, pv);
         }
@@ -404,21 +418,28 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
 }
 
 // The instance of a granularity and mode.
-template <bool kChunks, bool kPacked>
+template <bool kChunks, bool kPacked, bool kSlotted>
 const void* instance(bool traced) {
   return traced ? reinterpret_cast<const void*>(
-                      coloring_drain<kChunks, kPacked, true>)
+                      coloring_drain<kChunks, kPacked, true, kSlotted>)
                 : reinterpret_cast<const void*>(
-                      coloring_drain<kChunks, kPacked, false>);
+                      coloring_drain<kChunks, kPacked, false, kSlotted>);
 }
 
-const void* kernel_for(int granularity, bool packed, bool traced) {
+template <bool kSlotted>
+const void* instance_of(int granularity, bool packed, bool traced) {
   if (granularity > 1) {
-    return packed ? instance<true, true>(traced)
-                  : instance<true, false>(traced);
+    return packed ? instance<true, true, kSlotted>(traced)
+                  : instance<true, false, kSlotted>(traced);
   }
-  return packed ? instance<false, true>(traced)
-                : instance<false, false>(traced);
+  return packed ? instance<false, true, kSlotted>(traced)
+                : instance<false, false, kSlotted>(traced);
+}
+
+const void* kernel_for(int granularity, bool packed, bool traced,
+                       bool slotted) {
+  return slotted ? instance_of<true>(granularity, packed, traced)
+                 : instance_of<false>(granularity, packed, traced);
 }
 
 // The launch plan for a wavefront of W chunks of up to G vertices and a
@@ -427,8 +448,9 @@ const void* kernel_for(int granularity, bool packed, bool traced) {
 // global scratch when they and the bitset do not fit in shared memory; a
 // bitset that does not fit alone is refused.
 cudaError_t plan(int W, int granularity, bool packed, bool traced,
-                 int big_words, size_t* dyn, bool* wave_shared, int* grid) {
-  const void* kernel = kernel_for(granularity, packed, traced);
+                 bool slotted, int big_words, size_t* dyn, bool* wave_shared,
+                 int* grid) {
+  const void* kernel = kernel_for(granularity, packed, traced, slotted);
   DeviceInfo info;
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
@@ -449,16 +471,18 @@ cudaError_t plan(int W, int granularity, bool packed, bool traced,
 
 // The grid the launch takes for a wavefront of W chunks of up to G
 // vertices and a graph whose largest degree is max_degree, in a mode
-// (packed: the fused mode; traced: the traced mode), and whether the
-// wavefront lives in shared memory (1) or in global scratch of grid * W
-// (1 + G) ints (0).  Returns the cudaError_t (0 on success).
+// (packed: the fused mode; traced: the traced mode; slotted: the slotted
+// mode), and whether the wavefront lives in shared memory (1) or in global
+// scratch of grid * W (1 + G) ints (0).  Returns the cudaError_t (0 on
+// success).
 extern "C" int coloring_drain_grid(int wavefront, int granularity,
                                    int max_degree, int packed, int traced,
-                                   int* grid, int* wave_in_shared) {
+                                   int slotted, int* grid,
+                                   int* wave_in_shared) {
   size_t dyn = 0;
   bool shared = false;
   const cudaError_t err =
-      plan(wavefront, granularity, packed != 0, traced != 0,
+      plan(wavefront, granularity, packed != 0, traced != 0, slotted != 0,
            (max_degree + 32) / 32, &dyn, &shared, grid);
   if (err != cudaSuccess) return err;
   *wave_in_shared = shared;
@@ -474,26 +498,34 @@ extern "C" int coloring_drain_grid(int wavefront, int granularity,
 // `packed` selects the fused mode
 // (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
 // mode, with its [trace_capacity][13] rows and one-int cursor, both updated
-// in place.
-// Returns the cudaError_t of the launch (0 on success).
+// in place; a non-null `slab_ptr` the slotted mode, where col_idx is the
+// slab array and slab_len, ovl_ptr and ovl_col the rest of the slotted
+// view.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int coloring_drain_launch(
     int* buf, int cap, int* colors, int n, const int* row_ptr,
-    const int* col_idx, int* cursors, int wavefront, int max_rounds,
+    const int* col_idx, const int* slab_ptr, const int* slab_len,
+    const int* ovl_ptr, const int* ovl_col, int* cursors, int wavefront,
+    int max_rounds,
     int max_degree, int granularity, int width_bits, int threshold,
     int* pick, int* bad, unsigned long long* windows, unsigned int* splits,
     int* block_count, unsigned int* barrier, int* wave_global,
     long long* visits, int packed, int* trace, int trace_capacity,
     int* trace_cursor, int grid, cudaStream_t stream) {
   const bool traced = trace != nullptr;
+  const bool slotted = slab_ptr != nullptr;
   if (granularity < 1 || granularity > 64) return cudaErrorInvalidValue;
   if (traced && (trace_capacity < 1 || trace_cursor == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (slotted && (slab_len == nullptr || ovl_ptr == nullptr ||
+                  ovl_col == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const int big_words = (max_degree + 32) / 32;
   size_t dyn = 0;
   bool shared = false;
   int most = 0;
-  cudaError_t err = plan(wavefront, granularity, packed != 0, traced,
+  cudaError_t err = plan(wavefront, granularity, packed != 0, traced, slotted,
                          big_words, &dyn, &shared, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorInvalidValue;
@@ -506,6 +538,7 @@ extern "C" int coloring_drain_launch(
   d.n = n;
   d.row_ptr = row_ptr;
   d.col_idx = col_idx;
+  d.slotted = Slotted{slab_ptr, slab_len, ovl_ptr, ovl_col};
   d.cursors = cursors;
   d.wavefront = wavefront;
   d.max_rounds = max_rounds;
@@ -521,7 +554,7 @@ extern "C" int coloring_drain_launch(
   d.trace = TraceRing{trace, trace_capacity, trace_cursor};
   void* args[] = {&d};
   err = cudaLaunchCooperativeKernel(
-      kernel_for(granularity, packed != 0, traced), dim3(grid),
+      kernel_for(granularity, packed != 0, traced, slotted), dim3(grid),
       dim3(kThreads), args, dyn, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -31,12 +31,16 @@
 //   * cooperative_grid: the co-resident grid of a kernel;
 //   * chunk tasks (core/task.py): the codec, a chunk's degree, the member
 //     row of a unit (chunk_row_of), and the in-kernel coalesce_chunks over
-//     G-aligned windows whose words are stamped with the round.
+//     G-aligned windows whose words are stamped with the round;
+//   * the slotted mode (B3-slotted): the neighbors of a streaming graph's
+//     slotted view (graph/slotted.py), a row's slab prefix and then its
+//     overlay tail, read in place of a canonical col_idx word.
 //
 // Values that other blocks write inside the launch are read with
 // ld.global.cg (__ldcg), past the SM's incoherent L1.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -379,6 +383,50 @@ __device__ __forceinline__ int window_emit(const Windows& w, int v, Codec c,
   if (contiguous && fits) return v == vmn ? chunk_encode(v, cnt, c) : -1;
   if (count_split && v == vmn && contiguous && cnt > 1) atomicAdd(w.splits, 1u);
   return chunk_encode(v, 1, c);
+}
+
+// --------------------------------------------------------- slotted mode
+// A streaming graph's slotted view (graph/slotted.SlottedView): the kernel's
+// column array is the slab array, and the word at in-row offset `off` of row
+// r is slab_col[slab_ptr[r] + off] while off < slab_len[r], and
+// ovl_col[ovl_ptr[r] + off - slab_len[r]] past it (core/frontier.
+// gather_neighbors' two-level read).  row_ptr stays the canonical degree
+// prefix sum, so the scans, budgets, chunk codes and searches are the
+// canonical mode's; only the word a unit reads changes.  A unit of the
+// merge-path layout has off < deg(r), so both reads are in range.  The
+// reference streams each chunk's slab span and reads the overlay from its
+// flat array (src/repro/kernels/drain_loop/csr_stream.py:147-171); here
+// each unit reads its own word, which computes the same.
+struct Slotted {
+  const int* slab_ptr;  // [n + 1]
+  const int* slab_len;  // [n]
+  const int* ovl_ptr;   // [n + 1]
+  const int* ovl_col;   // [>= 1]
+};
+
+// The word at in-row offset `off` of row r of a slotted view whose slab
+// array is `slab_col`.
+__device__ __forceinline__ int slotted_word(const Slotted& s,
+                                            const int* __restrict__ slab_col,
+                                            int r, int off) {
+  const int len = __ldg(s.slab_len + r);
+  return off < len ? __ldg(slab_col + __ldg(s.slab_ptr + r) + off)
+                   : __ldg(s.ovl_col + __ldg(s.ovl_ptr + r) + (off - len));
+}
+
+// Stage that word into `dst`, a word of a stream stage (csr_stream.cuh): a
+// slab word by cp.async, an overlay word by a plain load and store, which
+// the stage's wait orders before the word is read.
+__device__ __forceinline__ void stage_slotted(int* dst, const Slotted& s,
+                                              const int* __restrict__ slab_col,
+                                              int r, int off) {
+  const int len = __ldg(s.slab_len + r);
+  if (off < len) {
+    __pipeline_memcpy_async(dst, slab_col + __ldg(s.slab_ptr + r) + off,
+                            sizeof(int));
+  } else {
+    *dst = __ldg(s.ovl_col + __ldg(s.ovl_ptr + r) + (off - len));
+  }
 }
 
 // ------------------------------------------------------------ trace ring

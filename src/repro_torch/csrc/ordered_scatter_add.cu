@@ -23,6 +23,10 @@
 // hundred at the most (the hub's share of a round's edges).  Loads of the
 // next eight values are issued before their adds, so a long run is bound
 // by the add chain and not by the loads' latency.
+//
+// The float64 instance serves the streaming PageRank rule's sums
+// (stream/incremental.py), numpy's `bincount(index, weights)` when `out`
+// enters holding zeros: a float64 left-to-right sum per index.
 
 #include <cuda_runtime.h>
 
@@ -31,33 +35,52 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kAhead = 8;
 
-__global__ void ordered_scatter_add(float* __restrict__ out, int n,
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <class T>
+__global__ void ordered_scatter_add(T* __restrict__ out, int n,
                                     const int* __restrict__ keys,
                                     const int* __restrict__ order,
-                                    const float* __restrict__ values, int k) {
+                                    const T* __restrict__ values, int k) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= k) return;
   const int key = keys[i];
   if (i > 0 && keys[i - 1] == key) return;
   if (key < 0 || key >= n) return;  // the wrapper's contract: in range
-  float acc = out[key];
+  T acc = out[key];
   int j = i;
   while (j < k && keys[j] == key) {
-    float v[kAhead];
+    T v[kAhead];
     int len = 0;
 #pragma unroll
     for (int t = 0; t < kAhead; ++t) {
       const bool in = j + t < k && keys[j + t] == key;
-      v[t] = in ? values[order[j + t]] : 0.0f;
+      v[t] = in ? values[order[j + t]] : T(0);
       len += in;
     }
 #pragma unroll
     for (int t = 0; t < kAhead; ++t) {
-      if (t < len) acc = __fadd_rn(acc, v[t]);
+      if (t < len) acc = add_rn(acc, v[t]);
     }
     j += len;
   }
   out[key] = acc;
+}
+
+template <class T>
+cudaError_t launch(T* out, int n, const int* keys, const int* order,
+                   const T* values, int k, cudaStream_t stream) {
+  if (k <= 0) return cudaSuccess;
+  const int blocks = (k + kThreads - 1) / kThreads;
+  ordered_scatter_add<T><<<blocks, kThreads, 0, stream>>>(out, n, keys,
+                                                          order, values, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -69,9 +92,14 @@ extern "C" int ordered_scatter_add_launch(float* out, int n, const int* keys,
                                           const int* order,
                                           const float* values, int k,
                                           cudaStream_t stream) {
-  if (k <= 0) return cudaSuccess;
-  const int blocks = (k + kThreads - 1) / kThreads;
-  ordered_scatter_add<<<blocks, kThreads, 0, stream>>>(out, n, keys, order,
-                                                       values, k);
-  return cudaGetLastError();
+  return launch(out, n, keys, order, values, k, stream);
+}
+
+// The same in float64.
+extern "C" int ordered_scatter_add_f64_launch(double* out, int n,
+                                              const int* keys,
+                                              const int* order,
+                                              const double* values, int k,
+                                              cudaStream_t stream) {
+  return launch(out, n, keys, order, values, k, stream);
 }

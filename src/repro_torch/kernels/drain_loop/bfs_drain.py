@@ -9,8 +9,10 @@ computes: the queue, ``dist``, the WorkCounter (splits included), rounds
 and processed items, bit for bit.  The carry picks the mode: a packed lane
 of the fused topology is the fused mode (B3-fused), a trace ring as the
 fifth leaf the traced mode (B3-traced), whose rows equal what
-``runtime.api.instrument_step`` records.  See the note in the source for
-its structure and what bounds it.
+``runtime.api.instrument_step`` records; an ``overlay`` (a streaming
+graph's slotted view, ``col_idx`` its slab array) is the slotted mode
+(B3-slotted).  See the note in the source for its structure and what
+bounds it.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from ..build import check_launch, load
 from .launch import (INT_MAX, check_operand, check_packed, chunk_operands,
                      lane_of, launch_plan, pack_cursors, ring_args, ring_of,
-                     unpack_carry, window_words)
+                     slotted_operands, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -31,33 +33,39 @@ _I32 = torch.int32
 def _lib():
     lib = load("bfs_drain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bfs_drain_grid.argtypes = [i, i, i, i, ctypes.POINTER(i),
+    lib.bfs_drain_grid.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                    ctypes.POINTER(i)]
     lib.bfs_drain_grid.restype = i
-    lib.bfs_drain_launch.argtypes = ([p, i, p, i, p, p, i, p, i, i, i, i, i,
-                                      i, i] + [p] * 9 + [i, p, i, p, i, p])
+    lib.bfs_drain_launch.argtypes = ([p, i, p, i, p, p, i] + [p] * 5
+                                     + [i, i, i, i, i, i, i] + [p] * 9
+                                     + [i, p, i, p, i, p])
     lib.bfs_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _grid(device_index: int, wavefront: int, granularity: int, packed: bool,
-          traced: bool):
+          traced: bool, slotted: bool):
     """``(blocks, wavefront in shared memory)`` of the launch, read once per
     device, wavefront, granularity and mode."""
     return launch_plan(_lib().bfs_drain_grid, "bfs_drain", device_index,
-                       wavefront, granularity, int(packed), int(traced))
+                       wavefront, granularity, int(packed), int(traced),
+                       int(slotted))
 
 
 def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
                    wavefront: int, budget: int, max_rounds: int, limit=None,
                    granularity: int = 1, split_threshold=None,
-                   per_item: bool = False, max_chunk_degree=None):
+                   per_item: bool = False, max_chunk_degree=None,
+                   overlay=None):
     """Drain ``carry = (queue, BFSState, rounds, processed[, ring])`` in
     one launch, ``while rounds < min(max_rounds, limit) and queue.size >
     0``.  ``queue`` is a TaskQueue or a one-lane MultiQueue of packed tasks
     (the fused mode); a TraceRing as the fifth leaf gets one row a round
-    (the traced mode) and comes back as a fresh copy.
+    (the traced mode) and comes back as a fresh copy.  With an ``overlay``
+    (``graph.slotted.Overlay``) the graph is a slotted view: ``col_idx`` is
+    its slab array and the kernel reads each unit's word through the slab
+    and the overlay (the slotted mode).
 
     ``granularity`` and ``split_threshold`` are the program's chunking
     (``algorithms.common.chunking_for``).  Merge path expands at most
@@ -102,9 +110,10 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
     if m + units_bound >= 2 ** 31 or units_bound + wavefront >= 2 ** 31:
         raise ValueError("the graph and the round's units exceed the "
                          "kernel's int32 range")
+    slotted = slotted_operands("bfs_drain_cuda", overlay, n, device)
     ring = ring_of("bfs_drain_cuda", carry, device)
     grid, wave_in_shared = _grid(device.index, wavefront, granularity,
-                                 packed, ring is not None)
+                                 packed, ring is not None, overlay is not None)
     cursors = pack_cursors(carry, limit, max_rounds, device)
     buf = lane_buf.clone()
     dist = state.dist.clone()
@@ -122,7 +131,8 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
     with torch.cuda.device(device):
         err = _lib().bfs_drain_launch(
             buf.data_ptr(), cap, dist.data_ptr(), n, row_ptr.data_ptr(),
-            col_idx.data_ptr(), m, cursors.data_ptr(), wavefront, budget,
+            col_idx.data_ptr(), m, *slotted, cursors.data_ptr(), wavefront,
+            budget,
             stored, max_rounds, *codec, unit_nbr.data_ptr(),
             words.data_ptr(), words[n:].data_ptr(), windows.data_ptr(),
             small[grid + 2:].data_ptr(), small.data_ptr(),

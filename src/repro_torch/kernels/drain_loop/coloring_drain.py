@@ -8,8 +8,9 @@ granularity 1 <= G <= 64.  The drain computes exactly what
 queue, ``colors``, the WorkCounter (splits included), rounds and processed
 items, bit for bit.  The carry picks the mode: a packed lane of the fused
 topology is the fused mode (B3-fused), a trace ring as the fifth leaf the
-traced mode (B3-traced).  See the note in the source for its structure and
-what bounds it.
+traced mode (B3-traced), an ``overlay`` (a streaming graph's slotted view,
+``col_idx`` its slab array) the slotted mode (B3-slotted).  See the note in
+the source for its structure and what bounds it.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from ..build import check_launch, load
 from .launch import (check_operand, check_packed, chunk_operands, lane_of,
                      launch_plan, pack_cursors, ring_args, ring_of,
-                     unpack_carry, window_words)
+                     slotted_operands, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -30,11 +31,11 @@ _I32 = torch.int32
 def _lib():
     lib = load("coloring_drain")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.coloring_drain_grid.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
+    lib.coloring_drain_grid.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
     lib.coloring_drain_grid.restype = i
-    lib.coloring_drain_launch.argtypes = ([p, i, p, i, p, p, p, i, i, i, i,
-                                           i, i] + [p] * 8
+    lib.coloring_drain_launch.argtypes = ([p, i, p, i, p, p] + [p] * 5
+                                          + [i, i, i, i, i, i] + [p] * 8
                                           + [i, p, i, p, i, p])
     lib.coloring_drain_launch.restype = i
     return lib
@@ -42,22 +43,25 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _grid(device_index: int, wavefront: int, granularity: int,
-          max_degree: int, packed: bool, traced: bool):
+          max_degree: int, packed: bool, traced: bool, slotted: bool):
     """``(blocks, wavefront in shared memory)`` of the launch."""
     return launch_plan(_lib().coloring_drain_grid, "coloring_drain",
                        device_index, wavefront, granularity, max_degree,
-                       int(packed), int(traced))
+                       int(packed), int(traced), int(slotted))
 
 
 def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                         *, wavefront: int, max_degree: int, max_rounds: int,
                         limit=None, granularity: int = 1,
-                        split_threshold=None):
+                        split_threshold=None, overlay=None):
     """Drain ``carry = (queue, ColorState, rounds, processed[, ring])`` in
     one launch, ``while rounds < min(max_rounds, limit) and queue.size >
     0``.  ``queue`` is a TaskQueue or a one-lane MultiQueue of packed tasks
     (the fused mode); a TraceRing as the fifth leaf gets one row a round
-    (the traced mode) and comes back as a fresh copy.
+    (the traced mode) and comes back as a fresh copy.  With an ``overlay``
+    (``graph.slotted.Overlay``) the graph is a slotted view: ``col_idx`` is
+    its slab array and a row's neighbors are its slab prefix and overlay
+    tail (the slotted mode).
 
     ``max_degree`` (the graph's, read once when the program is built)
     sizes the block bitset in shared memory; ``granularity`` and
@@ -89,9 +93,11 @@ def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             or col_idx.shape[0] >= 2 ** 31:
         raise ValueError("the graph or wavefront exceeds the kernel's int32 "
                          "range")
+    slotted = slotted_operands("coloring_drain_cuda", overlay, n, device)
     ring = ring_of("coloring_drain_cuda", carry, device)
     grid, wave_in_shared = _grid(device.index, wavefront, granularity,
-                                 max_degree, packed, ring is not None)
+                                 max_degree, packed, ring is not None,
+                                 overlay is not None)
 
     cursors = pack_cursors(carry, limit, max_rounds, device)
     buf = lane_buf.clone()
@@ -110,8 +116,9 @@ def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     with torch.cuda.device(device):
         err = _lib().coloring_drain_launch(
             buf.data_ptr(), cap, colors.data_ptr(), n, row_ptr.data_ptr(),
-            col_idx.data_ptr(), cursors.data_ptr(), wavefront, max_rounds,
-            max_degree, *codec, lanes.data_ptr(), lanes[flat:].data_ptr(),
+            col_idx.data_ptr(), *slotted, cursors.data_ptr(), wavefront,
+            max_rounds, max_degree, *codec, lanes.data_ptr(),
+            lanes[flat:].data_ptr(),
             windows.data_ptr(), small[grid + 2:].data_ptr(),
             small.data_ptr(), small[grid:grid + 2].data_ptr(),
             None if wave is None else wave.data_ptr(), visits.data_ptr(),

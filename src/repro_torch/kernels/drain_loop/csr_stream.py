@@ -15,6 +15,10 @@ The counterpart of ``repro/kernels/drain_loop/csr_stream.py``.
     reads the streamed slices, ``nbr = slices[owner, rank]``.  The
     merge-path layout makes it equal to the flat gather: every in-range
     unit's rank is below its owner's degree, which is at most the budget.
+    On a slotted graph each chunk streams its slab span instead,
+    ``SLAB_SLACK * (budget + G)`` words from ``slab_ptr[head]``, and a unit
+    past its row's slab prefix reads the overlay tail from its own flat
+    array (the reference's overlay arm).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from ...core.backend import resolve_backend
 from ...core.frontier import (Expansion, chunk_degrees, chunk_row_of,
                               inclusive_scan, searchsorted_right)
+from ...graph.slotted import SLAB_SLACK
 from ..build import check_launch, load
 
 _I32 = torch.int32
@@ -115,13 +120,15 @@ def expand_stream(items: torch.Tensor, valid: torch.Tensor,
     ``backend`` picks the stream: ``"torch"`` its plain version, otherwise
     :func:`stream_row_slices` (the kernel for CUDA tensors).  Every popped
     item streams a full ``work_budget``-long slice, ``n_items x
-    work_budget`` words in all, as in the reference.  Slotted graphs (an
-    overlay) come with the streaming slice.
+    work_budget`` words in all, as in the reference.
+
+    With an ``overlay`` (a slotted graph; ``col_idx`` is its slab array), a
+    chunk's slab span is at most ``SLAB_SLACK * (degree_sum + width) <=
+    SLAB_SLACK * (work_budget + max_width)`` words by the slab-slack
+    invariant, so one slice of that length from ``slab_ptr[head]`` holds
+    every member row's slab; the overlay tail is read from its own flat
+    array.
     """
-    if overlay is not None:
-        raise NotImplementedError(
-            "slotted graphs (an edge-log overlay) come with the streaming "
-            "slice, ROADMAP A9")
     stream = (stream_row_slices_ref
               if resolve_backend(backend, row_ptr) == "torch"
               else stream_row_slices)
@@ -137,8 +144,22 @@ def expand_stream(items: torch.Tensor, valid: torch.Tensor,
     src = (head if widths is None else
            chunk_row_of(row_ptr, head, rank, widths[owner], max_width))
     in_range = k < total
-    slices = stream(col_idx, row_ptr[safe].contiguous(), work_budget)
-    nbr = slices[owner.long(), torch.clamp(rank, 0, work_budget - 1).long()]
+    if overlay is None:
+        slices = stream(col_idx, row_ptr[safe].contiguous(), work_budget)
+        nbr = slices[owner.long(),
+                     torch.clamp(rank, 0, work_budget - 1).long()]
+    else:
+        slab_budget = SLAB_SLACK * (work_budget + max_width)
+        slices = stream(col_idx, overlay.slab_ptr[safe].contiguous(),
+                        slab_budget)
+        off = row_ptr[head] + rank - row_ptr[src]
+        s_idx = overlay.slab_ptr[src] + off - overlay.slab_ptr[head]
+        s_val = slices[owner.long(),
+                       torch.clamp(s_idx, 0, slab_budget - 1).long()]
+        o_idx = overlay.ovl_ptr[src] + off - overlay.slab_len[src]
+        o_val = overlay.ovl_col[
+            torch.clamp(o_idx, 0, overlay.ovl_col.shape[0] - 1).long()]
+        nbr = torch.where(off < overlay.slab_len[src], s_val, o_val)
     return Expansion(
         src=torch.where(in_range, src, 0),
         nbr=torch.where(in_range, nbr, 0),

@@ -1,8 +1,9 @@
 """What the drain kernels' wrappers share: operand checks, the launch
 plan, the chunk codec's operands and the coalescing windows, the task ring
 and mode a carry gives (a TaskQueue, or the fused topology's packed lane;
-a trace ring or none), and the carry's scalars packed into one int32
-tensor for the kernel and unpacked from it after (``bfs_drain``,
+a trace ring or none), the slotted mode's operands (a streaming graph's
+slab and overlay arrays, or none), and the carry's scalars packed into one
+int32 tensor for the kernel and unpacked from it after (``bfs_drain``,
 ``pagerank_drain``, ``coloring_drain``)."""
 from __future__ import annotations
 
@@ -36,6 +37,22 @@ def check_operand(who: str, name: str, t: torch.Tensor, device,
                          f"got {t.device} and {device}")
     if t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+
+
+def slotted_operands(who: str, overlay, n: int, device) -> tuple:
+    """The slotted mode's four pointers (``slab_ptr``, ``slab_len``,
+    ``ovl_ptr``, ``ovl_col`` of a ``graph.slotted.Overlay``), or four
+    Nones -- the canonical mode -- without an overlay."""
+    if overlay is None:
+        return (None,) * 4
+    for name, t in zip(overlay._fields, overlay):
+        check_operand(who, f"overlay.{name}", t, device)
+    if (overlay.slab_ptr.shape[0] != n + 1 or overlay.slab_len.shape[0] != n
+            or overlay.ovl_ptr.shape[0] != n + 1
+            or overlay.ovl_col.shape[0] < 1):
+        raise ValueError(f"{who}: the overlay's arrays do not fit a graph "
+                         f"of {n} vertices")
+    return tuple(t.data_ptr() for t in overlay)
 
 
 def chunk_operands(who: str, n: int, granularity: int,

@@ -10,8 +10,9 @@ granularity 1 <= G <= 64.  The drain computes exactly what
 contributions are added in unit order, as ``kernels/scatter_add`` adds
 them on the persistent path.  The carry picks the mode: a packed lane of
 the fused topology is the fused mode (B3-fused), a trace ring as the fifth
-leaf the traced mode (B3-traced).  See the note in the source for its
-structure and what bounds it.
+leaf the traced mode (B3-traced), an ``overlay`` (a streaming graph's
+slotted view, ``col_idx`` its slab array) the slotted mode (B3-slotted).
+See the note in the source for its structure and what bounds it.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from ..build import check_launch, load
 from .launch import (check_operand, check_packed, chunk_operands, lane_of,
                      launch_plan, pack_cursors, ring_args, ring_of,
-                     unpack_carry, window_words)
+                     slotted_operands, unpack_carry, window_words)
 
 _I32 = torch.int32
 
@@ -32,36 +33,39 @@ _I32 = torch.int32
 def _lib():
     lib = load("pagerank_drain")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pagerank_drain_grid.argtypes = [i, i, i, i, ctypes.POINTER(i),
+    lib.pagerank_drain_grid.argtypes = [i, i, i, i, i, ctypes.POINTER(i),
                                         ctypes.POINTER(i)]
     lib.pagerank_drain_grid.restype = i
     lib.pagerank_drain_launch.argtypes = (
-        [p, i, p, p, p, i, p, p, i, p, i, i, i, f, f, i, i, i, i]
-        + [p] * 19 + [i, p, i, p, i, p])
+        [p, i, p, p, p, i, p, p, i] + [p] * 5
+        + [i, i, i, f, f, i, i, i, i] + [p] * 19 + [i, p, i, p, i, p])
     lib.pagerank_drain_launch.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _grid(device_index: int, wavefront: int, granularity: int, packed: bool,
-          traced: bool):
+          traced: bool, slotted: bool):
     """``(blocks, wavefront in shared memory)`` of the launch, read once per
     device, wavefront, granularity and mode."""
     return launch_plan(_lib().pagerank_drain_grid, "pagerank_drain",
                        device_index, wavefront, granularity, int(packed),
-                       int(traced))
+                       int(traced), int(slotted))
 
 
 def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                         *, wavefront: int, budget: int, n_check: int,
                         damping: float, eps: float, max_rounds: int,
                         limit=None, granularity: int = 1,
-                        split_threshold=None):
+                        split_threshold=None, overlay=None):
     """Drain ``carry = (queue, PRState, rounds, processed[, ring])`` in one
     launch, ``while rounds < min(max_rounds, limit) and max(residue) >
     eps``.  ``queue`` is a TaskQueue or a one-lane MultiQueue of packed
     tasks (the fused mode); a TraceRing as the fifth leaf gets one row a
-    round (the traced mode) and comes back as a fresh copy.
+    round (the traced mode) and comes back as a fresh copy.  With an
+    ``overlay`` (``graph.slotted.Overlay``) the graph is a slotted view:
+    ``col_idx`` is its slab array and the kernel reads each unit's word
+    through the slab and the overlay (the slotted mode).
 
     Returns the new carry; its queue buffer, ``rank``, ``residue`` and
     ``in_queue`` are fresh copies that the kernel updated in place, its
@@ -97,9 +101,10 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
                            split_threshold)
     if packed:
         check_packed("pagerank_drain_cuda", n, granularity)
+    slotted = slotted_operands("pagerank_drain_cuda", overlay, n, device)
     ring = ring_of("pagerank_drain_cuda", carry, device)
     grid, wave_in_shared = _grid(device.index, wavefront, granularity,
-                                 packed, ring is not None)
+                                 packed, ring is not None, overlay is not None)
 
     cursors = pack_cursors(carry, limit, max_rounds, device,
                            state.check_cursor)
@@ -127,7 +132,7 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
         err = _lib().pagerank_drain_launch(
             buf.data_ptr(), cap, rank.data_ptr(), residue.data_ptr(),
             in_queue.data_ptr(), n, row_ptr.data_ptr(), col_idx.data_ptr(),
-            m, cursors.data_ptr(), wavefront, budget, n_check,
+            m, *slotted, cursors.data_ptr(), wavefront, budget, n_check,
             float(damping), float(eps), max_rounds, *codec,
             first_lane.data_ptr(), lane_res.data_ptr(), units5.data_ptr(),
             unit_contrib.data_ptr(), units5[2 * budget:].data_ptr(),

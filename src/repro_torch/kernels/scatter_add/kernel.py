@@ -20,8 +20,10 @@ from ..build import check_launch, load
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = load("ordered_scatter_add").ordered_scatter_add_launch
+def _launch_fn(dtype: torch.dtype):
+    lib = load("ordered_scatter_add")
+    fn = (lib.ordered_scatter_add_launch if dtype == torch.float32
+          else lib.ordered_scatter_add_f64_launch)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
@@ -31,17 +33,19 @@ def _launch_fn():
 
 def ordered_scatter_add_cuda(base: torch.Tensor, index: torch.Tensor,
                              values: torch.Tensor) -> torch.Tensor:
-    """A new f32 tensor: ``base`` with ``values[u]`` added at ``index[u]``
-    in update order, bit-equal to the CPU's sequential sum.  Indices must
-    lie in ``[0, len(base))``.  Launches on the current stream and does
-    not synchronize."""
+    """A new tensor: ``base`` with ``values[u]`` added at ``index[u]`` in
+    update order, bit-equal to the CPU's sequential sum; float32 (PageRank's
+    residues) or float64 (the streaming rule's sums).  Indices must lie in
+    ``[0, len(base))``.  Launches on the current stream and does not
+    synchronize."""
     for name, t in (("base", base), ("index", index), ("values", values)):
         if not (t.is_cuda and t.device == base.device):
             raise ValueError(f"ordered_scatter_add_cuda needs {name} on the "
                              f"CUDA device of base, got {t.device}")
-    if base.dtype != torch.float32 or values.dtype != torch.float32:
-        raise ValueError(f"base and values must be float32, got "
-                         f"{base.dtype} and {values.dtype}")
+    if base.dtype not in (torch.float32, torch.float64) \
+            or values.dtype != base.dtype:
+        raise ValueError(f"base and values must be both float32 or both "
+                         f"float64, got {base.dtype} and {values.dtype}")
     if base.dim() != 1 or index.dim() != 1 or index.shape != values.shape:
         raise ValueError(f"base must be 1-D and index, values 1-D of one "
                          f"length; got {tuple(base.shape)}, "
@@ -56,9 +60,9 @@ def ordered_scatter_add_cuda(base: torch.Tensor, index: torch.Tensor,
     order = order.to(torch.int32)
     values = values.contiguous()
     with torch.cuda.device(base.device):
-        err = _launch_fn()(out.data_ptr(), out.shape[0], keys.data_ptr(),
-                           order.data_ptr(), values.data_ptr(), k,
-                           torch.cuda.current_stream().cuda_stream)
+        err = _launch_fn(base.dtype)(
+            out.data_ptr(), out.shape[0], keys.data_ptr(), order.data_ptr(),
+            values.data_ptr(), k, torch.cuda.current_stream().cuda_stream)
     check_launch(err, "ordered_scatter_add")
     ordered_scatter_add_cuda.launches += 1
     return out

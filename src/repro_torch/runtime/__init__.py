@@ -12,12 +12,14 @@ __all__ = [
     "ExecutionPolicy", "KERNELS", "POLICY_GRID", "TOPOLOGIES",
     "config_for", "parse_policy", "policy_of",
     "AtosProgram", "ProgramContext",
-    "ExecutionResult", "execute", "algorithms", "build_program",
+    "ExecutionResult", "execute", "stream_execute", "algorithms",
+    "build_program",
 ]
 
 _LAZY = {
     "ExecutionResult": "api",
     "execute": "api",
+    "stream_execute": "api",
     "algorithms": "programs",
     "build_program": "programs",
 }

@@ -21,6 +21,8 @@ in both topologies (a packed lane is the kernel's fused mode); a program
 without one raises, and never falls back.  On CPU tensors, or with backend
 ``torch``, it is the plain fused drain over the same step.
 
+``stream_execute`` runs a program over a delta log (``stream/driver``).
+
 ``trace=`` takes an :class:`~repro_torch.obs.Trace`: a ring rides the
 carry as a fifth leaf under every single/fused policy and records one row
 per round (:func:`instrument_step`); a megakernel cell's drain kernel
@@ -108,16 +110,20 @@ def shared_queue_capacity(program: AtosProgram,
 
 
 def _shared_setup(program: AtosProgram, graph, cfg: SchedulerConfig,
-                  policy: ExecutionPolicy, queue_capacity: Optional[int]):
+                  policy: ExecutionPolicy, queue_capacity: Optional[int],
+                  *, init=None, queue=None):
     """Build the drain bundle of the single and fused topologies:
-    ``(queue, state, ops, step, cond, dropped_of)``.  Under the megakernel strategy the body streams its
-    row slices and the queue ops (the seed push included) run on the plain
-    backend, as the reference sets them up."""
+    ``(queue, state, ops, step, cond, dropped_of)``.  Under the megakernel
+    strategy the body streams its row slices and the queue ops (the seed
+    push included) run on the plain backend, as the reference sets them up.
+    ``init=(state, seeds)`` overrides ``program.init()`` (the stream
+    driver's reseed); ``queue`` skips the seed placement (a snapshot
+    restore hands back a mid-drain queue)."""
     if policy.topology == "fused":
         # admission first, before any seed or body is built
         from ..server.encoding import check_job_fits
         check_job_fits(0, graph.num_vertices, granularity=cfg.granularity)
-    state, seeds = program.init()
+    state, seeds = program.init() if init is None else init
     capacity = shared_queue_capacity(program, queue_capacity)
     ctx = _context(cfg)
     if policy.kernel == "megakernel":
@@ -126,16 +132,18 @@ def _shared_setup(program: AtosProgram, graph, cfg: SchedulerConfig,
         cfg = dataclasses.replace(cfg, backend="torch")
     seeds = torch.as_tensor(seeds, dtype=torch.int32, device=graph.device)
     if policy.topology == "single":
-        queue = make_queue(capacity, device=graph.device).push_dense(
-            seeds, backend=cfg.backend)
+        if queue is None:
+            queue = make_queue(capacity, device=graph.device).push_dense(
+                seeds, backend=cfg.backend)
         ops = taskqueue_ops(cfg)
         dropped_of = lambda q: q.dropped
     else:  # fused: the one-lane, one-tenant server drain
         from ..server.encoding import pack
-        queue = make_multiqueue(capacity, 1, device=graph.device).push(
-            0, pack(0, seeds), torch.ones(seeds.shape, dtype=torch.bool,
-                                          device=graph.device),
-            backend=cfg.backend)
+        if queue is None:
+            queue = make_multiqueue(capacity, 1, device=graph.device).push(
+                0, pack(0, seeds), torch.ones(seeds.shape, dtype=torch.bool,
+                                              device=graph.device),
+                backend=cfg.backend)
         ops = fused_lane_ops(cfg.wavefront, cfg.backend, lane_id=0, job_id=0)
         dropped_of = lambda mq: mq.lanes.dropped.sum(dtype=torch.int32)
     f = program.body(graph, ctx)
@@ -213,12 +221,15 @@ class DrainSetup(NamedTuple):
 
 def drain_setup(program: AtosProgram, graph, cfg: SchedulerConfig, *,
                 queue_capacity: Optional[int] = None,
-                trace: Optional[Trace] = None) -> DrainSetup:
+                trace: Optional[Trace] = None, init=None, queue=None,
+                rounds: int = 0, processed: int = 0) -> DrainSetup:
     """The drain of ``program`` on ``graph`` under ``cfg``, set up but not
     run -- for callers that drive it themselves, such as a drain cut into
     segments with ``core.scheduler.megakernel_segment``.  With a ``trace``
     the step is instrumented and a fresh ring of the trace's capacity is
-    the carry's fifth leaf."""
+    the carry's fifth leaf.  ``init`` and ``queue`` are
+    :func:`_shared_setup`'s; ``rounds`` and ``processed`` start the carry's
+    counts (a restored mid-drain carry)."""
     policy = policy_of(cfg)
     for axis in (policy.topology, policy.kernel):
         if axis in _LATER_SLICES:
@@ -227,9 +238,12 @@ def drain_setup(program: AtosProgram, graph, cfg: SchedulerConfig, *,
     kernel = (drain_kernel_for(program, graph, cfg)
               if policy.kernel == "megakernel" else None)
     queue, state, ops, step, cond, dropped_of = _shared_setup(
-        program, graph, cfg, policy, queue_capacity)
-    zero = torch.zeros((), dtype=torch.int32, device=graph.device)
-    carry = (queue, state, zero, zero)
+        program, graph, cfg, policy, queue_capacity, init=init, queue=queue)
+
+    def count(x):
+        return torch.full((), x, dtype=torch.int32, device=graph.device)
+
+    carry = (queue, state, count(rounds), count(processed))
     if trace is not None:
         step, cond = instrument_step(step, cond, ops, program)
         carry = carry + (trace.ring(graph.device),)
@@ -297,3 +311,40 @@ def run_doc(policy, stats: RunStats, info: dict) -> dict:
         dropped=int(stats.dropped), work=int(info.get("work", 0)),
         splits=int(info.get("splits", 0)),
         launches=int(info.get("launches", 0)))
+
+
+def stream_execute(algorithm, graph, deltas, cfg: SchedulerConfig, *,
+                   params: Optional[dict] = None,
+                   queue_capacity: Optional[int] = None,
+                   incremental: bool = True, snapshot_every: int = 0,
+                   checkpoint_dir: Optional[str] = None, keep: int = 3,
+                   resume: bool = False, snapshot_hook=None,
+                   trace: Optional[Trace] = None, compact_every: int = 0,
+                   overlay_slack: float = 0.25):
+    """Run ``algorithm`` as a long-lived streaming job over a mutating graph.
+
+    Batch 0 drains the base ``graph``; each later batch commits one
+    :class:`~repro_torch.stream.deltas.EdgeDelta` of ``deltas`` in place
+    (an O(touched rows) slotted-CSR commit, ``graph/slotted.py``), re-seeds
+    only the dirtied frontier (the program's ``dirty_seeds`` rule, unless
+    ``incremental=False`` asks for the full reseed) and drains again under
+    the policy ``cfg`` resolves to, on the graph's device.
+    ``compact_every`` / ``overlay_slack`` steer the slab compactions.
+    ``snapshot_every > 0`` (with ``checkpoint_dir``) writes crash-consistent
+    snapshots every that many rounds; ``resume=True`` continues from the
+    newest one.  ``algorithm`` is a registered program name (an
+    :class:`AtosProgram` is taken for its name: the program is rebuilt per
+    batch).  The sharded topology raises ``NotImplementedError`` naming
+    ROADMAP A12 before any commit.  Returns a :class:`~repro_torch.stream.
+    driver.StreamResult`.
+    """
+    from ..stream.driver import run_stream  # lazy: stream imports runtime
+
+    if isinstance(algorithm, AtosProgram):
+        algorithm = algorithm.name
+    return run_stream(
+        algorithm, graph, deltas, cfg, params=params,
+        queue_capacity=queue_capacity, incremental=incremental,
+        snapshot_every=snapshot_every, checkpoint_dir=checkpoint_dir,
+        keep=keep, resume=resume, snapshot_hook=snapshot_hook, trace=trace,
+        compact_every=compact_every, overlay_slack=overlay_slack)

@@ -9,14 +9,15 @@ packages one application's drain:
     stop(state)               -> optional convergence predicate
     empty_means_done          -> does a drained queue end the run?
     result(state), work(state), splits(state), ideal_work
+    dirty_seeds(delta, state) -> optional incremental re-seed (stream/)
     make_drain_kernel(graph, ctx, max_rounds)
                               -> optional CUDA drain kernel for the
                                  megakernel strategy (the port's own field)
 
 The reference's replica-merge spec and ``task_vertex`` come with the
 sharded slice, ``task_width`` (the server's vertex quota) with the task
-server, and ``dirty_seeds`` with the streaming slice.  The fused topology
-needs none of them: its lane packs whatever the body consumes.
+server.  The fused topology needs neither: its lane packs whatever the
+body consumes.
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ class AtosProgram:
     #: runner drains while ``rounds < min(max_rounds, limit)`` and the
     #: body's ``cond`` holds, bit-identical to the plain fused drain.
     make_drain_kernel: Optional[Callable] = None
+    #: the streaming hook: ``dirty_seeds(applied, state) -> (state',
+    #: seeds)`` re-seeds only the frontier a committed delta batch
+    #: invalidated (``applied`` a ``stream.ingest.AppliedDelta`` whose
+    #: ``new_graph`` this program was built on, ``state`` the previous
+    #: drain's final state).  None: the stream driver re-seeds in full
+    #: through ``init()``.
+    dirty_seeds: Optional[Callable[[Any, Any], Tuple[Any, Any]]] = None
 
     def body(self, graph, ctx: ProgramContext):
         return self.make_body(graph, ctx)

@@ -437,10 +437,14 @@ def test_params_and_unported_options(graphs):
     cfg = SchedulerConfig(num_workers=4)
     with pytest.raises(ValueError, match="unknown coloring params"):
         build_program("coloring", tgraph, cfg, params={"dirt": "recolor"})
-    # the streaming rule comes with its streaming hook
-    for dirty in ("conflicts", "recolor"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            build_program("coloring", tgraph, cfg, params={"dirty": dirty})
+    # the streaming rule: "conflicts" installs the dirty-seed hook,
+    # "recolor" leaves the full reseed, anything else raises
+    assert build_program("coloring", tgraph, cfg,
+                         params={"dirty": "conflicts"}).dirty_seeds
+    assert build_program("coloring", tgraph, cfg,
+                         params={"dirty": "recolor"}).dirty_seeds is None
+    with pytest.raises(ValueError, match="dirty mode"):
+        build_program("coloring", tgraph, cfg, params={"dirty": "recolr"})
     with pytest.raises(NotImplementedError, match="A12"):
         tcol.make_wavefront_fn(tgraph, 64, fused=False)
     # the flat budget: the largest degrees a wavefront can hold

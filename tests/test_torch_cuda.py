@@ -3,8 +3,9 @@ version at the main path's shapes and edge sizes, BFS through both kernels
 against the plain backend, the ordered scatter-add against the CPU's
 sequential sum and the PageRank and coloring drain kernels against their
 persistent, plain and CPU drains, bit for bit, every drain kernel at
-granularities 2, 3 and 8 (and BFS per_item) and in its fused and traced
-modes against the plain fused drain, and the flash-attention
+granularities 2, 3 and 8 (and BFS per_item) and in its fused, traced and
+slotted modes against the plain fused drain, streams on the card against
+the CPU, and the flash-attention
 kernel B5 against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
@@ -378,6 +379,128 @@ def test_drain_kernel_modes_match_the_plain_fused_drain(algo, mode, g):
         assert int(got[4].cursor) == int(got[2])
 
 
+# B3-slotted: (algo, mode, G) on a streaming graph's slotted view
+SLOTTED_CASES = [(algo, mode, g) for algo in ("bfs", "pagerank", "coloring")
+                 for mode, g in (("single", 1), ("single", 4), ("fused", 1),
+                                 ("traced", 1), ("fused traced", 4))] + [
+    ("bfs", "per_item", 1), ("bfs", "per_item", 4)]
+
+
+def _slotted_view():
+    """rmat(11)'s slotted view on the card after two uncompacted batches
+    of edge_delta_stream: rows spilled to a non-empty overlay."""
+    from repro_torch.graph import SlottedCSR, edge_delta_stream, rmat
+
+    g = rmat(11, 16, seed=2, device="cuda")
+    s = SlottedCSR.from_csr(g)
+    for d in edge_delta_stream(g, 2, 512, seed=3):
+        s.apply(d.src, d.dst, d.insert)
+    assert s.overlay_size > 0
+    return s.view()
+
+
+@pytest.mark.parametrize("algo,mode,g", SLOTTED_CASES)
+def test_drain_kernel_slotted_mode_matches_the_plain_fused_drain(algo, mode,
+                                                                 g):
+    """Each drain kernel's slotted mode, alone and with the fused and
+    traced modes, on a slotted view with an overlay: one launch of the
+    program's drain kernel and no other, the carry bitwise equal to the
+    plain fused drain over the same view on the CPU (the two-level gather
+    through the overlay)."""
+    _require_cuda()
+    from repro_torch.core import megakernel_drive, no_host_sync
+    from repro_torch.obs import Trace
+
+    view = _slotted_view()
+    topology = "fused" if "fused" in mode else "single"
+    policy = f"{topology}.megakernel" + ("" if g == 1 else f".g{g}")
+    params = {"source": 0} if algo == "bfs" else None
+    if mode == "per_item":
+        params["strategy"] = "per_item"
+
+    def trace():
+        return Trace(capacity=100) if "traced" in mode else None
+
+    mega = _algo_setup(view, algo, policy, params=params, trace=trace())
+    assert mega.kernel is not None
+    before = _launches()
+    with no_host_sync(view.device):
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+    torch.cuda.synchronize()
+    launched = [now - was for now, was in zip(_launches(), before)]
+    which = ("bfs", "pagerank", "coloring").index(algo)
+    assert launched == [int(i == which) for i in range(6)]
+    plain = _algo_setup(view.to("cpu"), algo, policy, params=params,
+                        trace=trace())
+    assert plain.kernel is None
+    _assert_same(got, megakernel_drive(plain.step, plain.cond, plain.carry))
+    assert int(mega.dropped(got[0])) == 0 and int(got[2]) > 1
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_stream_kernel_over_a_slab_matches_plain(g):
+    """B4 at its slotted shape: slices of SLAB_SLACK * (budget + G) words
+    of the slab array from slab_ptr[head], against the plain version."""
+    _require_cuda()
+    from repro_torch.graph.slotted import SLAB_SLACK
+    from repro_torch.kernels.drain_loop.csr_stream import (
+        stream_row_slices_cuda, stream_row_slices_ref)
+
+    view = _slotted_view()
+    heads = torch.randint(0, view.num_vertices, (48,),
+                          generator=torch.Generator().manual_seed(g))
+    starts = view.slab_ptr[heads.cuda()].contiguous()
+    budget = SLAB_SLACK * (512 + g)
+    got = stream_row_slices_cuda(view.slab_col, starts, budget)
+    assert torch.equal(got, stream_row_slices_ref(view.slab_col, starts,
+                                                  budget))
+
+
+@pytest.mark.parametrize("algo,policy,params", [
+    ("bfs", "single.megakernel", {"source": 0}),
+    ("bfs", "fused.megakernel.g2", {"source": 0}),
+    ("pagerank", "single.megakernel", None),
+    ("coloring", "single.megakernel", {"dirty": "recolor"}),
+    ("coloring", "single.megakernel", None)])
+def test_stream_megakernel_is_one_launch_a_batch_and_matches_the_cpu(
+        algo, policy, params):
+    """``stream_execute`` on the card: each batch drain is one launch of the
+    program's drain kernel (its slotted mode) and none of B1, B2 or the
+    scatter-add (PageRank's reseed launches the float64 scatter-add once
+    and once a decay sweep, and nothing else does); the result and the
+    batch records equal the same stream on the CPU."""
+    _require_cuda()
+    import dataclasses
+
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import edge_delta_stream, rmat
+    from repro_torch.runtime import config_for, parse_policy, stream_execute
+
+    g = rmat(10, 16, seed=4, device="cuda")
+    deltas = edge_delta_stream(g, 4, 256, seed=5)
+    cfg = config_for(SchedulerConfig(num_workers=64, fetch_size=2),
+                     parse_policy(policy))
+    before = _launches()
+    got = stream_execute(algo, g, deltas, cfg, params=params,
+                         compact_every=2)
+    launched = [now - was for now, was in zip(_launches(), before)]
+    which = ("bfs", "pagerank", "coloring").index(algo)
+    reseed_sums = sum(1 + r.reseed_sweeps for r in got.batches[1:]) \
+        if algo == "pagerank" else 0
+    assert launched == [len(deltas) + 1 if i == which else 0
+                        for i in range(5)] + [reseed_sums]
+    want = stream_execute(algo, g.to("cpu"), deltas, cfg, params=params,
+                          compact_every=2)
+    assert torch.equal(got.result.cpu(), want.result)
+    timing = ("commit_seconds", "reseed_seconds", "drain_seconds")
+    for a, b in zip(got.batches, want.batches):
+        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert {k: v for k, v in a.items() if k not in timing} == \
+            {k: v for k, v in b.items() if k not in timing}
+    assert any(r.overlay > 0 for r in got.batches)
+
+
 def test_megakernel_without_a_drain_kernel_raises_on_cuda():
     """A program with no drain kernel raises under single.megakernel on
     CUDA tensors; it never falls back to the plain fused drain."""
@@ -451,6 +574,27 @@ def test_ordered_scatter_add_matches_the_cpu_sum_bitwise(case):
     scale = float(values.abs().sum()) + float(base.abs().max())
     assert float((plain.cpu() - want).abs().max()) <= 1e-6 * scale
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("case", ["one index 1e5 times, mixed magnitudes",
+                                  "PageRank round shape"])
+def test_ordered_scatter_add_f64_matches_numpy_bincount(case):
+    """The float64 instance from zeros: numpy's ``bincount(index,
+    weights)``, each slot's terms added left to right (the streaming
+    PageRank rule's sums), bit for bit."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    base, index, values = _scatter_inputs(case)
+    values = values.double() * 1.000000119
+    want = np.bincount(index.numpy(), weights=values.numpy(),
+                       minlength=base.shape[0])
+    got = ordered_scatter_add_cuda(
+        torch.zeros(base.shape[0], dtype=torch.float64, device="cuda"),
+        index.cuda(), values.cuda())
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 def _drain_kernel_of(algo):

@@ -162,9 +162,19 @@ def test_stream_values_are_internal_and_overlays_wait_for_a9():
         with pytest.raises(ValueError, match="unknown backend"):
             execute(build_program("bfs", g, SchedulerConfig(num_workers=2)),
                     g, SchedulerConfig(num_workers=2, backend=value))
-    with pytest.raises(NotImplementedError, match="A9"):
-        expand_stream(items, torch.ones(2, dtype=torch.bool), g.row_ptr,
-                      g.col_idx, 16, overlay=object())
+    # a slotted view's overlay is served (the streaming slice): the stream
+    # over its slab array equals the flat expansion of the canonical graph
+    s = tg.SlottedCSR.from_csr(g)
+    s.apply(np.array([0, 0]), np.array([2, 3]), np.array([True, True]))
+    view, canonical = s.view(), s.to_csr()
+    assert s.overlay_size > 0
+    valid = torch.ones(2, dtype=torch.bool)
+    got = expand_stream(items, valid, view.row_ptr, view.slab_col, 16,
+                        overlay=view.overlay, backend="torch")
+    want = expand_stream(items, valid, canonical.row_ptr, canonical.col_idx,
+                         16, backend="torch")
+    for field, x, y in zip(want._fields, got, want):
+        _eq(x, y, f"slotted {field}")
 
 
 # ------------------------- B3's plain version on claim/push tapes

@@ -190,6 +190,33 @@ def test_unported_algorithms_and_trace_raise():
         build_program("bfs", g, cfg, params={"sorce": 0})
 
 
+@pytest.mark.parametrize("entry", ["stream_execute", "reshard"])
+def test_sharded_streams_raise_naming_a12(entry):
+    """The streaming slice runs every single and fused cell; the sharded
+    topology raises naming ROADMAP A12 before any commit."""
+    from repro_torch.graph import edge_delta_stream
+    from repro_torch.graph.slotted import SlottedCSR
+    from repro_torch.runtime import stream_execute
+    from repro_torch.stream import reshard
+
+    g = tg.grid2d(4, 4, device="cpu")
+    deltas = edge_delta_stream(g, 2, 4, seed=1)
+    with pytest.raises(NotImplementedError, match="A12"):
+        if entry == "stream_execute":
+            stream_execute("bfs", g, deltas, config_for(
+                SchedulerConfig(num_workers=2),
+                parse_policy("sharded.persistent")))
+        else:
+            reshard(SlottedCSR.from_csr(g), 2)
+
+
+def test_no_port_file_waits_for_the_streaming_slice():
+    """Every A9 entry point runs: no module of the port still names it as
+    a later slice."""
+    for path in PORT_FILES[:-1]:  # the package's modules (not chip_smoke)
+        assert "ROADMAP A9" not in path.read_text(), path.name
+
+
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--scale", "4",
