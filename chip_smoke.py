@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. require a CUDA device; print the card's name and power limit;
   2. build the kernels from ``src/repro_torch/csrc`` with nvcc (one process
      per source, all at once) and print ptxas's register / shared-memory /
-     spill report;
+     spill report, and how often B5's library holds the wgmma (``HGMMA``)
+     and TMA (``UTMALDG``) instructions in its SASS (``cuobjdump -sass``;
+     none of either fails);
   3. hold each kernel bit-equal to its plain PyTorch version on the card, at
      the main path's shapes and at edge sizes; the ordered scatter-add
      bit-equal to the CPU's sequential sum at a PageRank round's shape and
@@ -111,10 +113,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      device time and the plain fused drain's at full size;
   6. time the flash-attention kernel (B5) at the LM path's per-layer shape,
      its plain version and ``F.scaled_dot_product_attention`` (the library
-     call, timed here only; the port never calls it);
+     call, timed here only; the port never calls it); the bf16 shape runs
+     the tensor-core instance (wgmma + TMA, p in three bf16 terms), whose
+     SASS counts are printed again, and the CUDA-core instance is timed at
+     the same shape in f32;
   7. the LM serving path: minitron-4b at full width and depth in bf16 with
      seeded random weights.  Prefill of 2 x 4096 tokens through
-     ``attn_impl="auto"`` must launch B5 exactly once per layer (32); its
+     ``attn_impl="auto"`` must launch B5 exactly once per layer (32), all
+     of them its tensor-core instance (the f32 prefill below all of them
+     its CUDA-core instance); its
      logits at 64 seeded positions, the last positions and the first 32 of
      sequence 0 are held, with the plain bf16 path's, against an f32
      reference (the same weights upcast, plain path); an f32 prefill through
@@ -134,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -389,6 +397,13 @@ def _wrappers() -> dict:
 def reset_counts() -> None:
     for wrapper in _wrappers().values():
         wrapper.launches = 0
+    flash = _wrappers()["flash_attention"]
+    flash.instance_launches = dict.fromkeys(flash.instance_launches, 0)
+
+
+def flash_instances() -> dict:
+    """B5's launches by instance since the counts were last set to 0."""
+    return dict(_wrappers()["flash_attention"].instance_launches)
 
 
 def read_counts() -> dict:
@@ -2643,6 +2658,25 @@ def flash_bound() -> tuple:
             else (ms_bytes, "bytes"))
 
 
+SASS_OPS = ("HGMMA", "UTMALDG")     # wgmma and TMA loads in B5's SASS
+
+
+def flash_sass() -> dict:
+    """How often each of SASS_OPS occurs in the built B5 library
+    (``cuobjdump -sass``); fails if either is missing."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in SASS_OPS}
+    if not all(counts.values()):
+        raise AssertionError(f"B5's SASS lacks the tensor-core or TMA "
+                             f"instructions: {counts}")
+    return counts
+
+
 def time_flash() -> dict:
     """Phase 6: B5, its plain version and SDPA (enable_gqa) at the main
     shape, by profiler device time over 20 calls and between CUDA events."""
@@ -2661,14 +2695,27 @@ def time_flash() -> dict:
                                                   enable_gqa=True)]
     lib = fns[2]().view(b * h, s, d)
     lib_err = float((lib.float() - fns[0]().float()).abs().max())
-    profiles = [device_profile(fn, reps=20) for fn in fns]
+    profiles = []
+    for fn in fns:
+        for _ in range(PROFILE_TRIES):  # the profiler may keep no record
+            ms, rows = device_profile(fn, reps=20)
+            if ms is not None:
+                break
+        profiles.append((ms, rows))
     by_profiler = [ms for ms, _ in profiles]
     by_events = [cuda_ms(fn, reps=20) for fn in fns]
     timed_by = "profiler device time"
     if None in by_profiler:
         by_profiler, timed_by = by_events, "cuda events"
     bound, bound_by = flash_bound()
+    # the CUDA-core instance at the same shape in f32 (its inputs' type)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    core_ms = cuda_ms(lambda: flash_attention_cuda(
+        q32, k32, v32, causal=causal, window=window), reps=5, warmup=1)
+    del q32, k32, v32
+    torch.cuda.empty_cache()
     return {"ms": by_profiler[0], "plain_ms": by_profiler[1],
+            "cuda_core_f32_event_ms": core_ms,
             "library_ms": by_profiler[2], "timed_by": timed_by,
             "event_ms": by_events[0], "plain_event_ms": by_events[1],
             "library_event_ms": by_events[2], "bound_ms": bound,
@@ -2783,9 +2830,12 @@ def lm_path(card: str) -> dict:
     # the main path: bf16 prefill through B5, counts set to 0 just before
     got, secs_cold, launches = sampled_prefill(params, cfg, tokens, where,
                                                "auto")
-    if launches != cfg.num_layers:
+    instances = flash_instances()
+    if launches != cfg.num_layers or instances != {
+            "tensor_core": cfg.num_layers, "cuda_core": 0}:
         raise AssertionError(f"expected one B5 launch per layer "
-                             f"({cfg.num_layers}), got {launches}")
+                             f"({cfg.num_layers}), all of the tensor-core "
+                             f"instance, got {launches} {instances}")
     _, secs_warm, _ = sampled_prefill(params, cfg, tokens, where, "auto")
     plain, secs_plain, plain_launches = sampled_prefill(params, cfg, tokens,
                                                         where, "torch")
@@ -2800,11 +2850,15 @@ def lm_path(card: str) -> dict:
     ref, secs_ref, _ = sampled_prefill(params32, cfg, tokens, where, "torch")
     got32, secs_k32, launches32 = sampled_prefill(params32, cfg, tokens,
                                                   where, "auto")
+    instances32 = flash_instances()
     control, _, _ = sampled_prefill(params32, cfg, tokens, where, "blocked")
     del params32
     torch.cuda.empty_cache()
-    if launches32 != cfg.num_layers:
-        raise AssertionError(f"f32 prefill: {launches32} B5 launches")
+    if launches32 != cfg.num_layers or instances32 != {
+            "tensor_core": 0, "cuda_core": cfg.num_layers}:
+        raise AssertionError(f"f32 prefill: {launches32} B5 launches, "
+                             f"{instances32}; expected all of the CUDA-core "
+                             f"instance")
 
     scale = float(ref.abs().max())
     abs_term = BF16_ABS_STEPS * 2.0 ** (np.floor(np.log2(scale)) - 7)
@@ -2929,7 +2983,8 @@ def lm_path(card: str) -> dict:
         log(f"      {ms:10.3f} {calls:7d}  {key[:90]}")
     del params
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_seconds": {
+    return {"launches": launches, "instances": instances,
+            "f32_instances": instances32, "prefill_seconds": {
                 "cold": secs_cold, "warm": secs_warm, "plain": secs_plain,
                 "f32_plain": secs_ref, "f32_kernel": secs_k32},
             "tokens_per_s": LM_BATCH * LM_SEQ / secs_warm,
@@ -2993,6 +3048,7 @@ def main() -> int:
     from repro_torch.kernels.scatter_add.kernel import (
         ordered_scatter_add_cuda)
     from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
+    from repro_torch.kernels.flash_attention.kernel import tile_plan
     from repro_torch.runtime import config_for, parse_policy
 
     out_dir = ROOT / "chiprun_out" / "chip_smoke"
@@ -3010,6 +3066,9 @@ def main() -> int:
         log(f"  ptxas report for csrc/{name}.cu:")
         for line in report.strip().splitlines():
             log(f"    {line}")
+    sass = flash_sass()
+    log(f"  B5 (csrc/flash_attention.cu) SASS: "
+        + ", ".join(f"{op} {n}" for op, n in sass.items()))
 
     t0 = time.perf_counter()
     graph = rmat(args.scale, edge_factor=16, seed=1, device="cuda")
@@ -3289,6 +3348,7 @@ def main() -> int:
     log(f"[6] B5 flash attention at the LM path's per-layer shape "
         f"{FLASH_MAIN[1:7]} bf16 causal  [{card}]")
     flash = time_flash()
+    flash["sass"] = sass
     log(f"    kernel {flash['ms']:.4f} ms, plain {flash['plain_ms']:.4f} ms, "
         f"F.scaled_dot_product_attention {flash['library_ms']:.4f} ms by "
         f"{flash['timed_by']}; bound {flash['bound_ms']:.4f} ms "
@@ -3296,6 +3356,11 @@ def main() -> int:
         f"{flash['plain_event_ms']:.4f}, {flash['library_event_ms']:.4f} ms;"
         f" SDPA vs kernel max |diff| {flash['library_vs_kernel_max_abs']:.3g}"
         f"  [{card}]")
+    log(f"    the tensor-core instance ({tile_plan(128, torch.bfloat16)}) "
+        f"has {', '.join(f'{op} {n}' for op, n in sass.items())} in its "
+        f"library's SASS; the CUDA-core instance takes "
+        f"{flash['cuda_core_f32_event_ms']:.4f} ms at the same shape in f32 "
+        f"between events  [{card}]")
 
     log(f"[7] LM serving path: {LM_ARCH} at full width and depth, bf16, "
         f"device=cuda, attn_impl=auto")
@@ -3364,11 +3429,25 @@ def main() -> int:
         "rounds": rounds, "units_expanded": mega["units"],
         "shape": f"rmat({args.scale}) drain, W={cfg.wavefront}, budget "
                  f"{budget}, queue int32[{4 * graph.num_vertices}]"})
+    plan_tc = tile_plan(128, torch.bfloat16)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         "launches": lm["launches"], "max_abs_err": flash_err,
+        "instances": {
+            "tensor_core": {
+                "kernel": "flash_fwd_tc (wgmma + TMA, bf16, D % 8 == 0)",
+                "launches": lm["instances"]["tensor_core"],
+                "q_tile": plan_tc.q_tile, "kv_tile": plan_tc.kv_tile,
+                "sass": flash["sass"], "ms": flash["ms"]},
+            "cuda_core": {
+                "kernel": "flash_fwd (f32 math on the CUDA cores; f32, and "
+                          "bf16 with D % 8 != 0)",
+                "launches": lm["instances"]["cuda_core"],
+                "f32_prefill_launches": lm["f32_instances"]["cuda_core"],
+                "event_ms_f32_main_shape": flash["cuda_core_f32_event_ms"]}},
+        "p_terms": plan_tc.p_terms,
         "tolerance": "bf16: within one bf16 step of attention_ref; f32: 2e-5",
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],

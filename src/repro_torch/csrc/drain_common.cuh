@@ -529,7 +529,9 @@ inline cudaError_t cooperative_grid(const void* kernel, int threads,
   cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
   if (!info.cooperative) return cudaErrorNotSupported;
-  if (dyn > 48 * 1024) {
+  // opt in whenever there is dynamic shared memory: static and dynamic
+  // together may pass the 48 KB a block gets without it
+  if (dyn > 0) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));

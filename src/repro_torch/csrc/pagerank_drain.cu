@@ -60,22 +60,29 @@
 // only if both add each target's contributions in unit order onto the
 // harvested residue.  Here: each unit counts itself into its target with an
 // atomicAdd, whose return value is the unit's arbitrary place in the
-// target's segment; the unit that got place 0 reserves the segment's start
-// in a scratch array from a cursor; every unit writes its id at start +
-// place; every unit counts the ids below its own in its segment, which is
-// its rank in unit order, and writes its contribution at start + rank; the
-// place-0 unit's thread adds the segment left to right.  Five grid
-// barriers, and no order depends on timing.  A segment is as long as its
-// target's in-edges from the round's processed vertices (a few hundred at
-// most for a hub); the rank scan reads the segment once per unit, and the
-// threads of a warp that share a target read the same words.  (A first
-// form sorted each segment by one thread with a heapsort in device memory:
-// its dependent loads cost about 1.6 ms a round at rmat(21).)
+// target's segment.  Then one pass reserves and places: each block reserves
+// the segments of the targets whose place-0 unit it holds with one atomic
+// on a cursor (a block-wide scan of their lengths), and every unit writes
+// its id and contribution at its segment's start + place, waiting for a
+// start that another block reserves.  The next pass sorts each segment by
+// unit id and adds it left to right, in tiers by length: up to 8 entries
+// the place-0 unit's thread sorts in registers, up to 64 its warp ranks by
+// shuffles; longer segments, listed in the reserve pass, are dealt to the
+// blocks in turn: up to 2048 a block sorts in shared memory (bitonic),
+// longer ones it gathers by one pass over the round's units in unit order.
+// Two grid barriers, and no order depends on timing.  A segment is as long
+// as its target's in-edges from the round's processed vertices: about 800
+// at rmat(21)'s largest hub, at most min(budget, the target's in-degree).
+// (Ranking each unit by a scan of its whole segment, quadratic in its
+// length, with a serial add from device memory and one cursor atomic a
+// target, cost 102 us of a 139 us round over rmat(21)'s first 512 rounds
+// on an H100; a heapsort of each segment by one thread in device memory,
+// about 1.6 ms a round.)
 //
 // Structure, barriers and the push are drain_common.cuh's, as in
 // bfs_drain.cu: every block pops and scans the whole wavefront itself;
 // lanes, units and push positions are cut into one contiguous range per
-// block.  Nine grid barriers a round with items, two without; at G > 1 one
+// block.  Seven grid barriers a round with items, two without; at G > 1 one
 // more for the harvest and one more for the rescan's windows.
 //
 // Modes.  The fused mode (B3-fused) drains lane 0 of the fused topology's
@@ -92,9 +99,9 @@
 //
 // What bounds the drain on an H100: bytes, about 12 bytes per unit (its
 // col_idx word, the target's residue read and written) plus 24 per
-// processed vertex and the rescan's 5 bytes per id, and the barriers.  The
-// grid-wide max reads all n residues a round (8 MB at rmat(21)), which a
-// later form could track incrementally.  Right first, fast later.
+// processed vertex and the rescan's 5 bytes per id, and the barriers, each
+// at least about 2.5 us on an H100.  The grid-wide max reads all n residues
+// a round (8 MB at rmat(21)), which a later form could track incrementally.
 
 #include <cuda_runtime.h>
 
@@ -107,7 +114,12 @@ using namespace drain;
 
 constexpr int kThreads = 512;
 constexpr int kCheckCursor = kCursors;  // PageRank's rescan cursor
-constexpr int kAhead = 8;  // loads issued ahead of the adds of a segment
+// The ordered sum's tiers by segment length: one thread sorts in
+// registers, one warp ranks by shuffles, one block sorts in shared memory;
+// longer segments are gathered by one block in unit order.
+constexpr int kThreadSort = 8;
+constexpr int kWarpSort = 64;
+constexpr int kBlockSort = 2048;
 
 struct Drain {
   int* buf;  // [cap] the task ring, updated in place
@@ -137,10 +149,13 @@ struct Drain {
   float* unit_contrib;             // [budget]
   int* unit_place;                 // [budget] place in the target's segment
   int* seg;                        // [budget] unit ids grouped by target
-  float* ordered;  // [budget] contributions grouped by target, unit order
+  float* seg_contrib;  // [budget] their contributions, beside them
   int* seg_count;   // [n] units a target gets this round; zero at launch
-  int* seg_start;   // [n] start of a target's segment this round
+  int* seg_start;   // [n] 1 + start of a target's segment this round, 0
+                    // until reserved; zero at launch
   int* seg_cursor;  // [1]
+  int* long_segs;   // [budget] targets whose segment passes kWarpSort
+  int* long_count;  // [1]
   int* scan_keep;   // [n_check] a rescan id that is over, then what it
                     // pushes; -1 for none
   int* block_count;       // [gridDim.x] push count of each block
@@ -160,6 +175,151 @@ struct Unit {
   int member;  // owner * G + src - head: the slot of src's residue
 };
 
+// ------------------------------------------------------ the ordered sum
+// A target's segment holds the ids of the round's units that push to it,
+// and their contributions, in the arbitrary order of their places.  Each
+// tier sorts it by unit id and adds the contributions left to right onto
+// the harvested residue, then clears the target's segment words.
+
+__device__ __forceinline__ void close_segment(const Drain& d, int t,
+                                              float acc) {
+  d.residue[t] = acc;
+  d.seg_count[t] = 0;
+  d.seg_start[t] = 0;
+}
+
+// len <= kThreadSort, by one thread: an odd-even transposition sort in
+// registers.
+__device__ __forceinline__ void sum_by_thread(const Drain& d, int t,
+                                              int start, int len) {
+  float acc = __ldcg(d.residue + t);
+  if (len == 1) {
+    acc = __fadd_rn(acc, __ldcg(d.seg_contrib + start));
+  } else {
+    int id[kThreadSort];
+    float c[kThreadSort];
+#pragma unroll
+    for (int j = 0; j < kThreadSort; ++j) {
+      id[j] = j < len ? __ldcg(d.seg + start + j) : INT_MAX;
+      c[j] = j < len ? __ldcg(d.seg_contrib + start + j) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kThreadSort; ++r) {
+#pragma unroll
+      for (int j = r & 1; j + 1 < kThreadSort; j += 2) {
+        const bool swap = id[j] > id[j + 1];
+        const int lo = swap ? id[j + 1] : id[j];
+        const int hi = swap ? id[j] : id[j + 1];
+        const float clo = swap ? c[j + 1] : c[j];
+        const float chi = swap ? c[j] : c[j + 1];
+        id[j] = lo;
+        id[j + 1] = hi;
+        c[j] = clo;
+        c[j + 1] = chi;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kThreadSort; ++j) {
+      if (j < len) acc = __fadd_rn(acc, c[j]);
+    }
+  }
+  close_segment(d, t, acc);
+}
+
+// kThreadSort < len <= kWarpSort, by one warp (every lane calls it with the
+// same segment): each lane ranks two entries against all by shuffles, the
+// contributions land at their ranks in `buf` (kWarpSort floats of this
+// warp) and lane 0 adds them.
+__device__ void sum_by_warp(const Drain& d, int t, int start, int len,
+                            float* buf) {
+  const int lane = threadIdx.x & 31;
+  const int id0 = lane < len ? __ldcg(d.seg + start + lane) : INT_MAX;
+  const int id1 =
+      lane + 32 < len ? __ldcg(d.seg + start + lane + 32) : INT_MAX;
+  int r0 = 0;
+  int r1 = 0;
+  for (int j = 0; j < 32; ++j) {
+    const int a = __shfl_sync(kFull, id0, j);
+    const int b = __shfl_sync(kFull, id1, j);
+    r0 += (a < id0) + (b < id0);
+    r1 += (a < id1) + (b < id1);
+  }
+  if (lane < len) buf[r0] = __ldcg(d.seg_contrib + start + lane);
+  if (lane + 32 < len) buf[r1] = __ldcg(d.seg_contrib + start + lane + 32);
+  __syncwarp();
+  if (lane == 0) {
+    float acc = __ldcg(d.residue + t);
+    for (int j = 0; j < len; ++j) acc = __fadd_rn(acc, buf[j]);
+    close_segment(d, t, acc);
+  }
+  __syncwarp();
+}
+
+// kWarpSort < len <= kBlockSort, by the whole block: a bitonic sort of the
+// (id, contribution) pairs in shared memory, padded to a power of two with
+// INT_MAX ids, then thread 0 adds them.
+template <int kThreads>
+__device__ void sum_by_block(const Drain& d, int t, int start, int len,
+                             int* sid, float* sval) {
+  int size = 2 * kWarpSort;
+  while (size < len) size <<= 1;
+  for (int i = threadIdx.x; i < size; i += kThreads) {
+    sid[i] = i < len ? __ldcg(d.seg + start + i) : INT_MAX;
+    sval[i] = i < len ? __ldcg(d.seg_contrib + start + i) : 0.0f;
+  }
+  __syncthreads();
+  for (int k = 2; k <= size; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < size; i += kThreads) {
+        const int x = i ^ j;
+        if (x < i) continue;  // each pair by the thread of its lower index
+        const int a = sid[i];
+        const int b = sid[x];
+        if ((a > b) == ((i & k) == 0)) {
+          sid[i] = b;
+          sid[x] = a;
+          const float v = sval[i];
+          sval[i] = sval[x];
+          sval[x] = v;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (threadIdx.x == 0) {
+    float acc = __ldcg(d.residue + t);
+    for (int i = 0; i < len; ++i) acc = __fadd_rn(acc, sval[i]);
+    close_segment(d, t, acc);
+  }
+  __syncthreads();
+}
+
+// len > kBlockSort, by the whole block: a pass over all L units of the
+// round in unit order, compacting those that push to t into `sval` a tile
+// at a time, which thread 0 adds.  A segment is bounded only by min(budget,
+// the target's in-degree): up to 102,430 at rmat(21), reached at a large
+// budget or granularity; this path costs one read of the round's unit
+// targets per such segment.
+template <int kThreads>
+__device__ void sum_by_scan(const Drain& d, int t, int L, float* sval,
+                            int* warp_sums) {
+  float acc = threadIdx.x == 0 ? __ldcg(d.residue + t) : 0.0f;
+  for (int base = 0; base < L; base += kThreads) {
+    const int u = base + threadIdx.x;
+    const bool match = u < L && __ldcg(d.unit_nbr + u) == t;
+    int total;
+    const int at =
+        block_exclusive_scan<kThreads>(match ? 1 : 0, warp_sums, total);
+    if (match) sval[at] = __ldcg(d.unit_contrib + u);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < total; ++i) acc = __fadd_rn(acc, sval[i]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) close_segment(d, t, acc);
+}
+
 // kChunks = false is the G = 1 instance, whose codec is the compile-time
 // identity: no multiplication or division by G, no window code.  kPacked is
 // the fused mode, kTraced the traced mode, kSlotted the slotted mode.
@@ -169,6 +329,9 @@ __global__ void __launch_bounds__(kThreads, 1) pagerank_drain(Drain d) {
   __shared__ int ring[csr_stream::kStages][kThreads];
   __shared__ int warp_sums[kThreads / 32];
   __shared__ float warp_max[kThreads / 32];
+  __shared__ int sort_id[kBlockSort];
+  __shared__ float sort_val[kBlockSort];
+  __shared__ int block_base;
   const int W = d.wavefront;
   const int tid = threadIdx.x;
   const int G = gridDim.x;
@@ -312,7 +475,10 @@ __global__ void __launch_bounds__(kThreads, 1) pagerank_drain(Drain d) {
       // 5. expand this block's units through the row-slice stream
       int ua, ub;
       block_range(L, blockIdx.x, G, ua, ub);
-      if (blockIdx.x == 0 && tid == 0) *d.seg_cursor = 0;
+      if (blockIdx.x == 0 && tid == 0) {
+        *d.seg_cursor = 0;
+        *d.long_count = 0;
+      }
       const int tiles = ub > ua ? (ub - ua + kThreads - 1) / kThreads : 0;
       auto stage = [&](int s, int slot) {
         Unit unit{0, 0, 0};
@@ -363,48 +529,88 @@ __global__ void __launch_bounds__(kThreads, 1) pagerank_drain(Drain d) {
       }
       grid_barrier(d.barrier);
 
-      // 6. the ordered sum: reserve, place, rank, then add per target
-      for (int u = ua + tid; u < ub; u += kThreads) {
-        if (d.unit_place[u] == 0) {
-          const int t = d.unit_nbr[u];
-          d.seg_start[t] = atomicAdd(d.seg_cursor, __ldcg(d.seg_count + t));
+      // 6a. the ordered sum: reserve and place.  Each block reserves the
+      // segments of the targets whose place-0 unit it holds with one
+      // atomic on the cursor, from a scan of their lengths, then places
+      // each of its units (id and contribution) at its target's start +
+      // place, waiting on the start where another block reserves it.  No
+      // block waits before its reservations are written, so every wait
+      // ends.
+      {
+        const int per = (ub - ua + kThreads - 1) / kThreads;
+        const int u0 = min(ua + tid * per, ub);
+        const int u1 = min(u0 + per, ub);
+        int need = 0;
+        for (int u = u0; u < u1; ++u) {
+          if (d.unit_place[u] == 0) {
+            need += __ldcg(d.seg_count + d.unit_nbr[u]);
+          }
+        }
+        int total;
+        int at = block_exclusive_scan<kThreads>(need, warp_sums, total);
+        if (tid == 0) block_base = atomicAdd(d.seg_cursor, total);
+        __syncthreads();
+        at += block_base;
+        for (int u = u0; u < u1; ++u) {
+          if (d.unit_place[u] == 0) {
+            const int t = d.unit_nbr[u];
+            const int len = __ldcg(d.seg_count + t);
+            *reinterpret_cast<volatile int*>(d.seg_start + t) = at + 1;
+            at += len;
+            if (len > kWarpSort) d.long_segs[atomicAdd(d.long_count, 1)] = t;
+          }
+        }
+        for (int u = ua + tid; u < ub; u += kThreads) {
+          const volatile int* start =
+              reinterpret_cast<volatile int*>(d.seg_start + d.unit_nbr[u]);
+          int s1;
+          unsigned spins = 0;
+          while ((s1 = *start) == 0) {
+            __nanosleep(20);
+            if (++spins > kSpinLimit) __trap();
+          }
+          const int place = s1 - 1 + d.unit_place[u];
+          d.seg[place] = u;
+          d.seg_contrib[place] = d.unit_contrib[u];
         }
       }
       grid_barrier(d.barrier);
-      for (int u = ua + tid; u < ub; u += kThreads) {
-        d.seg[__ldcg(d.seg_start + d.unit_nbr[u]) + d.unit_place[u]] = u;
+
+      // 6b. sort each segment by unit id and add it onto the harvested
+      // residue: short segments by the thread of their place-0 unit, then
+      // by its warp; the long ones 6a listed, dealt to the blocks in turn
+      for (int base = ua; base < ub; base += kThreads) {
+        const int u = base + tid;
+        int t = 0;
+        int len = 0;
+        int start = 0;
+        if (u < ub && d.unit_place[u] == 0) {
+          t = d.unit_nbr[u];
+          len = __ldcg(d.seg_count + t);
+          start = __ldcg(d.seg_start + t) - 1;
+        }
+        if (len > 0 && len <= kThreadSort) sum_by_thread(d, t, start, len);
+        unsigned mine =
+            __ballot_sync(kFull, len > kThreadSort && len <= kWarpSort);
+        while (mine != 0) {
+          const int lead = __ffs(mine) - 1;
+          mine &= mine - 1;
+          sum_by_warp(d, __shfl_sync(kFull, t, lead),
+                      __shfl_sync(kFull, start, lead),
+                      __shfl_sync(kFull, len, lead),
+                      sort_val + (tid >> 5) * kWarpSort);
+        }
       }
-      grid_barrier(d.barrier);
-      // each unit's rank in its segment is the number of its segment's
-      // units with a lower id; its contribution goes to that place
-      for (int u = ua + tid; u < ub; u += kThreads) {
-        const int t = d.unit_nbr[u];
-        const int start = __ldcg(d.seg_start + t);
+      __syncthreads();  // the warps' buffers are the block tier's
+      const int n_long = __ldcg(d.long_count);
+      for (int i = blockIdx.x; i < n_long; i += G) {
+        const int t = __ldcg(d.long_segs + i);
         const int len = __ldcg(d.seg_count + t);
-        int r = 0;
-        for (int i = 0; i < len; ++i) r += __ldcg(d.seg + start + i) < u;
-        d.ordered[start + r] = d.unit_contrib[u];
-      }
-      grid_barrier(d.barrier);
-      for (int u = ua + tid; u < ub; u += kThreads) {
-        if (d.unit_place[u] == 0) {
-          const int t = d.unit_nbr[u];
-          const int start = __ldcg(d.seg_start + t);
-          const int len = __ldcg(d.seg_count + t);
-          float acc = __ldcg(d.residue + t);
-          for (int i = 0; i < len; i += kAhead) {
-            float v[kAhead];
-#pragma unroll
-            for (int j = 0; j < kAhead; ++j) {
-              v[j] = i + j < len ? __ldcg(d.ordered + start + i + j) : 0.0f;
-            }
-#pragma unroll
-            for (int j = 0; j < kAhead; ++j) {
-              if (i + j < len) acc = __fadd_rn(acc, v[j]);
-            }
-          }
-          d.residue[t] = acc;
-          d.seg_count[t] = 0;
+        if (len <= kBlockSort) {
+          sum_by_block<kThreads>(d, t, __ldcg(d.seg_start + t) - 1, len,
+                                 sort_id, sort_val);
+        } else {
+          sum_by_scan<kThreads>(d, t, L, sort_val, warp_sums);
         }
       }
       grid_barrier(d.barrier);
@@ -563,11 +769,11 @@ extern "C" int pagerank_drain_grid(int wavefront, int granularity, int packed,
 // One cooperative launch of the whole drain on `stream`.  `grid` and
 // `wave_global` come from pagerank_drain_grid; the scratch is sized by the
 // caller: first_lane n words of all ones; lane_res W G floats; unit_nbr,
-// unit_contrib, unit_place, seg and ordered budget words each; seg_count n
-// zeroed ints; seg_start n ints; seg_cursor one int; scan_keep n_check
-// ints; trunc_round n zeroed ints; windows 3 (n / G +
-// 2) zeroed words, then one zeroed split count; block_count grid ints;
-// block_max grid floats; barrier 2 zeroed words; units one word, which gets
+// unit_contrib, unit_place, seg and seg_contrib budget words each;
+// seg_count and seg_start n zeroed ints each; seg_cursor one int;
+// long_segs budget ints and long_count one int; scan_keep n_check ints;
+// trunc_round n zeroed ints; windows 3 (n / G + 2) zeroed words, then one
+// zeroed split count; block_count grid ints; block_max grid floats; barrier 2 zeroed words; units one word, which gets
 // the number of work units the drain expanded.  `threshold` is the rescan's
 // split threshold (INT_MAX for none).  `packed` selects the fused mode
 // (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
@@ -583,8 +789,9 @@ extern "C" int pagerank_drain_launch(
     int wavefront, int budget, int n_check, float damping, float eps,
     int max_rounds, int granularity, int width_bits, int threshold,
     unsigned long long* first_lane, float* lane_res, int* unit_nbr,
-    float* unit_contrib, int* unit_place, int* seg, float* ordered,
-    int* seg_count, int* seg_start, int* seg_cursor, int* scan_keep,
+    float* unit_contrib, int* unit_place, int* seg, float* seg_contrib,
+    int* seg_count, int* seg_start, int* seg_cursor, int* long_segs,
+    int* long_count, int* scan_keep,
     int* trunc_round, unsigned long long* windows, unsigned int* splits,
     int* block_count, float* block_max, unsigned int* barrier,
     int* wave_global, long long* units, int packed, int* trace,
@@ -635,10 +842,12 @@ extern "C" int pagerank_drain_launch(
   d.unit_contrib = unit_contrib;
   d.unit_place = unit_place;
   d.seg = seg;
-  d.ordered = ordered;
+  d.seg_contrib = seg_contrib;
   d.seg_count = seg_count;
   d.seg_start = seg_start;
   d.seg_cursor = seg_cursor;
+  d.long_segs = long_segs;
+  d.long_count = long_count;
   d.scan_keep = scan_keep;
   d.block_count = block_count;
   d.block_max = block_max;

@@ -38,7 +38,7 @@ def _lib():
     lib.pagerank_drain_grid.restype = i
     lib.pagerank_drain_launch.argtypes = (
         [p, i, p, p, p, i, p, p, i] + [p] * 5
-        + [i, i, i, f, f, i, i, i, i] + [p] * 19 + [i, p, i, p, i, p])
+        + [i, i, i, f, f, i, i, i, i] + [p] * 21 + [i, p, i, p, i, p])
     lib.pagerank_drain_launch.restype = i
     return lib
 
@@ -112,19 +112,20 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     rank = state.rank.clone()
     residue = state.residue.clone()
     in_queue = state.in_queue.clone()
-    # scratch: the unit arrays, the per-target segment words (counts
-    # zeroed), the rows' truncation rounds (zeroed), the dedup words (all
-    # ones), the windows, then the small arrays
+    # scratch: the unit arrays, the per-target segment words (counts and
+    # starts zeroed), the rows' truncation rounds (zeroed), the dedup words
+    # (all ones), the windows, then the small arrays
     i32 = functools.partial(torch.empty, dtype=_I32, device=device)
     units5 = i32(5 * budget)
     unit_contrib = units5[budget:2 * budget].view(torch.float32)
-    ordered = units5[4 * budget:].view(torch.float32)
+    seg_contrib = units5[4 * budget:].view(torch.float32)
     seg_words = torch.zeros(3 * n, dtype=_I32, device=device)
     first_lane = torch.full((n,), -1, dtype=torch.int64, device=device)
     lane_res = torch.empty(wavefront * granularity, dtype=torch.float32,
                            device=device)
     windows = window_words(n, granularity, device)
-    small = torch.zeros(2 * grid + 4, dtype=_I32, device=device)
+    small = torch.zeros(2 * grid + 5, dtype=_I32, device=device)
+    long_segs = i32(budget)
     scan_keep = i32(n_check)
     wave = (None if wave_in_shared else i32(grid * 2 * wavefront))
     units = torch.zeros((), dtype=torch.int64, device=device)
@@ -136,9 +137,10 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             float(damping), float(eps), max_rounds, *codec,
             first_lane.data_ptr(), lane_res.data_ptr(), units5.data_ptr(),
             unit_contrib.data_ptr(), units5[2 * budget:].data_ptr(),
-            units5[3 * budget:].data_ptr(), ordered.data_ptr(),
+            units5[3 * budget:].data_ptr(), seg_contrib.data_ptr(),
             seg_words.data_ptr(), seg_words[n:].data_ptr(),
-            small[2 * grid + 2:].data_ptr(), scan_keep.data_ptr(),
+            small[2 * grid + 2:].data_ptr(), long_segs.data_ptr(),
+            small[2 * grid + 4:].data_ptr(), scan_keep.data_ptr(),
             seg_words[2 * n:].data_ptr(),
             windows.data_ptr(), small[2 * grid + 3:].data_ptr(),
             small.data_ptr(), small[grid:2 * grid].data_ptr(),

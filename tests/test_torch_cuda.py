@@ -5,8 +5,9 @@ sequential sum and the PageRank and coloring drain kernels against their
 persistent, plain and CPU drains, bit for bit, every drain kernel at
 granularities 2, 3 and 8 (and BFS per_item) and in its fused, traced and
 slotted modes against the plain fused drain, streams on the card against
-the CPU, and the flash-attention
-kernel B5 against ``attention_ref`` within its stated tolerance.
+the CPU, B3-pr's ordered sum on a hub graph past a block's sort, and the
+flash-attention kernel B5 (its tensor-core and CUDA-core instances)
+against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -689,6 +690,87 @@ def test_drain_kernel_segments_equal_the_whole_drain(algo, every):
     assert int(cut5[2]) == 5
 
 
+# B3-pr's ordered sum on a hub-heavy graph: a round's segments reach every
+# tier (one thread, one warp, one block's sort, the block's pass in unit
+# order past 2048 entries); (mode, G)
+HUB_CASES = [(mode, g) for mode in ("single", "fused", "traced", "slotted")
+             for g in (1, 4)]
+HUB_CUT = 4                        # rounds held against the plain drain
+
+
+def _hub_graph(device):
+    """16,384 vertices: vertex 0 adjacent to all others, vertices 1..8 to
+    100..1500 random others, 9..200 to 10..150, plus 4,096 random edges;
+    symmetric.  With W = 2560 a round past the first gives vertex 0 more
+    contributions than a block's sort holds (2048)."""
+    from repro_torch.graph.csr import from_edges
+
+    rng = np.random.default_rng(11)
+    n = 16384
+    src = [np.zeros(n - 1, dtype=np.int64)]
+    dst = [np.arange(1, n, dtype=np.int64)]
+    for h in range(1, 201):
+        deg = 100 + 175 * h if h <= 8 else 10 + (h * 7) % 141
+        src.append(np.full(deg, h))
+        dst.append(rng.integers(201, n, size=deg))
+    src.append(rng.integers(1, n, size=4096))
+    dst.append(rng.integers(1, n, size=4096))
+    return from_edges(n, np.concatenate(src), np.concatenate(dst),
+                      symmetrize=True, device=device)
+
+
+@pytest.mark.parametrize("mode,g", HUB_CASES)
+def test_pagerank_drain_ordered_sum_on_a_hub_matches_persistent_and_plain(
+        mode, g):
+    """B3-pr in each mode at G = 1 and 4 on a hub whose segment outgrows a
+    block's shared-memory sort: one launch, the whole drain bitwise equal
+    to the persistent drain on the card (B1, B2, the ordered scatter-add)
+    and on the CPU, and its first rounds to the plain fused drain on the
+    CPU."""
+    _require_cuda()
+    from repro_torch.core import megakernel_drive, persistent_drive
+    from repro_torch.graph import SlottedCSR
+    from repro_torch.obs import Trace
+
+    g_cuda = _hub_graph("cuda")
+    if mode == "slotted":
+        g_cuda = SlottedCSR.from_csr(g_cuda).view()
+    topology = "fused" if mode == "fused" else "single"
+    suffix = "" if g == 1 else f".g{g}"
+    params = {"work_budget": 16384}
+    kw = dict(num_workers=640, fetch_size=4)
+
+    def trace():
+        return Trace(capacity=64) if mode == "traced" else None
+
+    def setup(graph, kernel, **more):
+        cell = f"{topology}.{kernel}{suffix}"
+        return _algo_setup(graph, "pagerank", cell, params=params,
+                           trace=trace(), **kw, **more)
+
+    mega = setup(g_cuda, "megakernel")
+    before = _launches()
+    got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                           kernel=mega.kernel)
+    torch.cuda.synchronize()
+    assert [now - was for now, was in zip(_launches(), before)] == \
+        [0, 1, 0, 0, 0, 0]
+    assert float(got[1].residue.max()) <= 1e-6
+    assert int(mega.dropped(got[0])) == 0
+    persistent = setup(g_cuda, "persistent")
+    _assert_same(got, persistent_drive(persistent.step, persistent.cond,
+                                       persistent.carry))
+    host = setup(g_cuda.to("cpu"), "persistent")
+    _assert_same(got, persistent_drive(host.step, host.cond, host.carry))
+    cut = setup(g_cuda, "megakernel", max_rounds=HUB_CUT)
+    first = megakernel_drive(cut.step, cut.cond, cut.carry,
+                             kernel=cut.kernel)
+    plain = setup(g_cuda.to("cpu"), "megakernel", max_rounds=HUB_CUT)
+    assert plain.kernel is None
+    _assert_same(first, megakernel_drive(plain.step, plain.cond,
+                                         plain.carry))
+
+
 # ------------------------------------------------ B5, flash attention
 # (bh, bkv, s_q, s_kv, d, causal, window): the JAX tests' f32 shapes, the
 # head dims 64 / 120 / 128 / 256, a window, and Sq > Skv + window, whose
@@ -750,6 +832,90 @@ def test_flash_attention_kernel_bf16_within_one_step(d, window):
     off = (out - want).abs()
     assert bool((off <= step + 1e-6).all()), float((off - step).max())
     assert float((off > 0).float().mean()) <= 1e-2
+
+
+def _bf16_excess(got, want):
+    """How far each element lies beyond one bf16 step at the larger
+    magnitude (<= 0 within one step), as chip_smoke.check_flash holds."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    return (got - want).abs() - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# (bh, bkv, s_q, s_kv, d, causal, window): the tensor-core kernel's head
+# dims, windows, Sq != Skv, and rows with no live key (Sq > Skv + window)
+TC_CASES = [
+    (4, 2, 512, 512, 64, True, 0), (4, 2, 512, 512, 120, True, 128),
+    (4, 2, 512, 512, 128, False, 0), (4, 2, 256, 512, 128, True, 0),
+    (4, 1, 512, 256, 128, False, 64), (4, 2, 512, 512, 256, True, 0),
+    (4, 2, 512, 512, 256, False, 128), (2, 1, 384, 128, 120, True, 64),
+    (2, 1, 384, 128, 256, True, 64), (4, 4, 1024, 1024, 192, True, 256),
+]
+
+
+@pytest.mark.parametrize("bh,bkv,s_q,s_kv,d,causal,window", TC_CASES)
+def test_flash_attention_tensor_core_bf16_within_one_step(
+        bh, bkv, s_q, s_kv, d, causal, window):
+    """bf16 with D % 8 == 0 runs the wgmma + TMA kernel: every element
+    within one bf16 step of attention_ref (excess <= 1e-6), rows with no
+    live key equal to mean(v)."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, tile_plan)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    assert tile_plan(d, torch.bfloat16).instance == "tensor_core"
+    q, k, v = _flash_inputs(d + s_q + s_kv, bh, bkv, s_q, s_kv, d,
+                            torch.bfloat16)
+    before = dict(flash_attention_cuda.instance_launches)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.instance_launches == {
+        "tensor_core": before["tensor_core"] + 1,
+        "cuda_core": before["cuda_core"]}
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert float(_bf16_excess(out, want).max()) <= 1e-6
+    dead = s_kv + window - 1 if window else s_q
+    if dead < s_q:
+        mean_v = v.float().mean(dim=1).repeat_interleave(bh // bkv, dim=0)
+        assert float((out[:, dead:].float() - mean_v[:, None]).abs().max()) \
+            <= 2 ** -7
+
+
+@pytest.mark.parametrize("d", [36, 100])
+def test_flash_attention_bf16_head_dim_off_the_tma_grid_runs_cuda_cores(d):
+    """bf16 rows that are not a multiple of 16 bytes (D % 8 != 0) run the
+    CUDA-core kernel, by the tile plan, within one bf16 step."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, tile_plan)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    assert tile_plan(d, torch.bfloat16).instance == "cuda_core"
+    q, k, v = _flash_inputs(d, 4, 2, 256, 256, d, torch.bfloat16)
+    before = dict(flash_attention_cuda.instance_launches)
+    out = flash_attention_cuda(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.instance_launches["cuda_core"] == \
+        before["cuda_core"] + 1
+    want = attention_ref(q, k, v, causal=True, window=0)
+    assert float(_bf16_excess(out, want).max()) <= 1e-6
+
+
+def test_flash_attention_copies_an_unaligned_input_for_tma():
+    """A bf16 view 2 bytes past an aligned address goes through the
+    tensor-core kernel (copied first) and equals the aligned input's run."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+
+    q, k, v = _flash_inputs(7, 2, 1, 128, 128, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view_as(q)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(flash_attention_cuda(shifted, k, v),
+                       flash_attention_cuda(q, k, v))
 
 
 def test_flash_attention_through_the_model_layout():

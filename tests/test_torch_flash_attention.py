@@ -19,7 +19,8 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ops import multihead_attention as j_mha
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_cuda, tile_plan)
 from repro_torch.kernels.flash_attention.ops import multihead_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import _sdpa_xla
@@ -162,3 +163,61 @@ def test_wrapper_refuses_bad_layouts():
         flash_attention_cuda(torch.zeros(2, 128, 16, dtype=torch.float16),
                              torch.zeros(2, 128, 16, dtype=torch.float16),
                              torch.zeros(2, 128, 16, dtype=torch.float16))
+
+
+SMEM_LIMIT = 232_448    # shared memory one block may use on an H100 (227 KB)
+# the tensor-core instance's tiles by head dim: (d, padded, KV tile)
+TC_PLANS = [(8, 64, 64), (64, 64, 64), (120, 128, 64), (128, 128, 64),
+            (136, 192, 64), (192, 192, 64), (200, 256, 32), (256, 256, 32)]
+
+
+@pytest.mark.parametrize("d,pad,kv", TC_PLANS)
+def test_tile_plan_puts_bf16_rows_of_16_byte_multiples_on_the_tensor_cores(
+        d, pad, kv):
+    plan = tile_plan(d, torch.bfloat16)
+    assert (plan.instance, plan.head_pad, plan.q_tile, plan.kv_tile,
+            plan.p_terms) == ("tensor_core", pad, 128, kv, 3)
+    # q, three K+V stages of 128-byte rows, the barriers and the alignment
+    assert plan.smem_bytes == pad // 64 * 128 * (128 + 6 * kv) + 56 + 1024
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d,dtype,pad", [
+    (1, torch.bfloat16, 64), (36, torch.bfloat16, 64),
+    (100, torch.bfloat16, 128), (250, torch.bfloat16, 256),
+    (64, torch.float32, 64), (120, torch.float32, 128),
+    (128, torch.float32, 128), (256, torch.float32, 256)])
+def test_tile_plan_keeps_f32_and_unaligned_bf16_rows_on_the_cuda_cores(
+        d, dtype, pad):
+    plan = tile_plan(d, dtype)
+    assert (plan.instance, plan.head_pad, plan.q_tile, plan.kv_tile,
+            plan.p_terms) == ("cuda_core", pad, 64, 32, 0)
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+def test_tile_plan_refuses_what_no_instance_takes():
+    for d in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            tile_plan(d, torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        tile_plan(64, torch.float16)
+
+
+@pytest.mark.parametrize("terms,worst", [(1, 2.0 ** -8), (2, 2.0 ** -17),
+                                         (3, 0.0)])
+def test_bf16_terms_of_p_carry_f32(terms, worst):
+    """The tensor-core instance adds p . v as bf16 terms of p, each the
+    rounding of what the terms before it leave: one term errs by up to
+    2^-8 of p, two by 2^-17, and three give p back exactly (p >= 2^-100),
+    which is why it takes three."""
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(np.concatenate([
+        rng.random(200_000), np.exp2(-100 * rng.random(100_000)),
+        [1.0, 1.0 - 2.0 ** -24]]).astype(np.float32))
+    rest, total = p.clone(), torch.zeros_like(p, dtype=torch.float64)
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        total += term.double()
+        rest = rest - term
+    rel = ((total - p.double()).abs() / p.double()).max()
+    assert float(rel) <= worst
