@@ -12,10 +12,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      and TMA (``UTMALDG``) instructions in its SASS (``cuobjdump -sass``;
      none of either fails);
   3. hold each kernel bit-equal to its plain PyTorch version on the card, at
-     the main path's shapes and at edge sizes; the ordered scatter-add
-     bit-equal to the CPU's sequential sum at a PageRank round's shape and
-     on one index repeated 1e5 times; B4 also over the slab array of the
-     graph's slotted build, at the slotted span SLAB_SLACK (budget + 1);
+     the main path's shapes and at edge sizes (B2 three calls in a row and
+     off the 16-byte grid, up to N = 2^24); the ordered scatter-add
+     bit-equal to the sequential sum at a PageRank round's shape, on one
+     index repeated 1e5 times, at each edge of its tiers (segments of 1 to
+     1e5 updates, float32 and float64) and on 3,000 segments past 2048 in
+     one call, and its float64 instance at k = m (the streaming reseed's
+     sum over col_idx) equal to numpy's bincount; B4 also over the slab
+     array of the graph's slotted build, at the slotted span SLAB_SLACK
+     (budget + 1);
   4. the main path: speculative BFS on ``rmat(scale, 16)`` under
      ``single.persistent`` at granularity 1, merge-path expansion, backend
      ``auto`` (the kernels), from the highest-degree vertex.  Distances
@@ -43,7 +48,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      CPU bit for bit; one persistent drain (timed once: it gives the
      state, RunStats, info and final queue) and two megakernel drains,
      B3-pr's device time, busy shares, and the first 64 rounds against the
-     plain fused drain on the card;
+     plain fused drain on the card; the persistent drain's device ops a
+     round;
   4d. coloring on the same graph likewise: persistent (backends auto and
      torch, bitwise equal; valid, checked on the card), megakernel as one
      launch of B3-col equal to it, queue and counters included; segments;
@@ -97,15 +103,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      invariant within its bound; coloring ``recolor`` equal to a cold
      drain, ``conflicts`` valid for less work; per batch the commit,
      reseed and drain seconds, PageRank's decay sweeps and the commit
-     meters; on batch 1's slotted view each drain kernel's slotted mode
-     over the first 64 rounds against the discrete cell's plain flat
-     gather (PageRank's on the CPU), timed beside the canonical mode on the
-     canonical CSR (BFS and coloring also whole); at rmat(14) each slotted
+     meters, and PageRank's reseed seconds a batch; on batch 1's slotted
+     view each drain kernel's slotted mode over the first 64 rounds
+     against the discrete cell's plain flat gather (PageRank's on the
+     CPU), timed beside the canonical mode on the canonical CSR (BFS and
+     coloring also whole); at rmat(14) each slotted
      drain whole against the plain fused drain on the CPU; a child process
      killed with SIGKILL in its snapshot hook, resumed here bit for bit;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
-     call of a back-to-back run between CUDA events -- and the main drain
+     call of a back-to-back run between CUDA events; the ordered
+     scatter-add also in float64 at k = m -- and the main drain
      on each backend with the host clock (auto, torch, torch, auto), then
      once more each under the profiler for device time, busy share and
      device ops per predicated step; then the megakernel drain beside the
@@ -272,19 +280,26 @@ def check_compact(n_main: int, dev, rng) -> tuple:
     from repro_torch.kernels.queue_compact.kernel import compact_cuda
     from repro_torch.kernels.queue_compact.ref import compact_ref
 
-    cases = [(n_main, p) for p in (0.0, 0.3, 1.0)]
-    cases += [(n, 0.3) for n in (1, 255, 256, 257, 1023, 1024, 1025, 70001)]
+    cases = [(n_main, p) for p in (0.0, 0.3, 0.99, 1.0)]
+    cases += [(n, 0.3) for n in (1, 255, 256, 257, 1023, 1024, 1025, 4095,
+                                 4096, 4097, 70001)]
+    cases += [(2 ** 24, p) for p in (0.0, 0.3, 1.0)]
     err = 0
     main_inputs = None
     for n, p in cases:
         items = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, size=n),
                                 dtype=torch.int32, device=dev)
         mask = torch.as_tensor(rng.random(n) < p, device=dev)
-        got = compact_cuda(items, mask)
         want = compact_ref(items, mask)
+        # three calls in a row (each on fresh zeroed words), then the same
+        # items one off the 16-byte grid (the kernel's scalar loads)
+        got = [compact_cuda(items, mask) for _ in range(3)]
+        odd = compact_cuda(items[1:], mask[1:])
         torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        log(f"  B2 compact N={n} p={p}: count={int(got[1])} max_abs_err={e}")
+        e = max(max(max_abs_err(g, want) for g in got),
+                max_abs_err(odd, compact_ref(items[1:], mask[1:])))
+        log(f"  B2 compact N={n} p={p}: count={int(got[0][1])} max_abs_err="
+            f"{e} (three calls, and the items off the 16-byte grid)")
         if e:
             raise AssertionError(f"compact kernel disagrees with compact_ref "
                                  f"at N={n} p={p}")
@@ -536,19 +551,26 @@ PR_PARAMS = {"damping": 0.85, "eps": 1e-6, "check_size": 64}
 FIRST_ROUNDS = 64                  # rounds of the kernel-vs-plain timing
 
 
-def check_scatter(graph, budget: int, rng) -> tuple:
-    """The ordered scatter-add against the CPU's sequential sum
-    (``index_add_`` on CPU tensors), bitwise: at a PageRank round's shape
-    (``budget`` updates, the edges of consecutive rows, into n slots; the
-    last tenth idle lanes adding +0.0 at ``lane % n``) and on one index
-    repeated 1e5 times at mixed magnitudes.  The plain version on CUDA
-    tensors (deterministic ``index_put_``) is reported beside it.  Returns
-    the main inputs, the kernel's largest error over the cases, and the
-    plain version's report."""
-    from repro_torch.kernels.scatter_add.kernel import (
-        ordered_scatter_add_cuda)
-    from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
+def sequential_sum(base, index, values) -> torch.Tensor:
+    """``base`` with each update added in turn, in base's precision: numpy's
+    unbuffered ``add.at`` on the host.  (The CPU's ``index_add_`` is in
+    order only up to a size: at millions of updates it splits the work
+    over threads.)"""
+    out = base.cpu().numpy().copy()
+    np.add.at(out, index.cpu().numpy(), values.cpu().numpy())
+    return torch.from_numpy(out)
 
+
+SCATTER_TIERS = (1, 2, 8, 9, 64, 65, 2048, 2049, 100_000)
+
+
+def scatter_cases(graph, budget: int, rng) -> list:
+    """``(label, (base, index, values))`` on the card: a PageRank round's
+    shape (``budget`` updates, the edges of consecutive rows, into n slots;
+    the last tenth idle lanes adding +0.0 at ``lane % n``); one index
+    repeated 1e5 times at mixed magnitudes; a slot whose segment has each
+    tier edge's length, among updates to 999 others, in float32 and
+    float64; 3,000 segments of 2,049 to 2,400 updates, shuffled."""
     n, m = graph.num_vertices, graph.num_edges
     start = int(rng.integers(0, max(m - budget, 1)))
     index = graph.col_idx[start:start + budget].clone()
@@ -570,25 +592,77 @@ def check_scatter(graph, budget: int, rng) -> tuple:
                                           for x in (
                  rng.random(1000).astype(np.float32), dup.astype(np.int32),
                  mixed.astype(np.float32))))]
+    for dtype in (np.float32, np.float64):
+        for length in SCATTER_TIERS:
+            size = 2 * length + 100
+            tier = rng.integers(0, 1000, size=size)
+            tier[tier == 17] = 18
+            tier[rng.choice(size, size=length, replace=False)] = 17
+            v = rng.standard_normal(size) * 10.0 ** rng.integers(
+                -8, 8, size=size)
+            cases.append((f"segment of {length} {np.dtype(dtype).name}",
+                          tuple(torch.as_tensor(x, device="cuda") for x in (
+                              rng.random(1000).astype(dtype),
+                              tier.astype(np.int32), v.astype(dtype)))))
+    lengths = rng.integers(2049, 2401, size=3000)
+    many = rng.permutation(np.repeat(np.arange(3000) * 7, lengths))
+    cases.append(("3000 segments past 2048", tuple(
+        torch.as_tensor(x, device="cuda") for x in (
+            rng.random(21_000).astype(np.float32), many.astype(np.int32),
+            (rng.standard_normal(many.size) * 10.0 ** rng.integers(
+                -6, 6, size=many.size)).astype(np.float32)))))
+    return cases
+
+
+def check_scatter(graph, budget: int, rng) -> tuple:
+    """The ordered scatter-add against the sequential sum, bitwise, on
+    ``scatter_cases``, and its float64 instance at k = m (the streaming
+    reseed's sum: ``col_idx`` as the index, from zeros) against numpy's
+    ``bincount``.  The plain version on CUDA tensors (deterministic
+    ``index_put_``) is reported beside the first two cases.  Returns the
+    main inputs, the float64 inputs, the kernel's largest error over the
+    cases, and the plain version's report."""
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+    from repro_torch.kernels.scatter_add.ref import ordered_scatter_add_ref
+
+    cases = scatter_cases(graph, budget, rng)
     plain_report, errs = {}, []
     for label, (b, i, v) in cases:
-        want = b.cpu().index_add_(0, i.cpu().long(), v.cpu())
+        want = sequential_sum(b, i, v)
         got = ordered_scatter_add_cuda(b, i, v).cpu()
-        plain = ordered_scatter_add_ref(b, i, v).cpu()
         err = float((got - want).abs().max())
         errs.append(err)
-        plain_err = float((plain - want).abs().max())
-        plain_report[label] = {"bitwise": bool(torch.equal(plain, want)),
-                               "max_abs_err": plain_err}
+        note = ""
+        if len(plain_report) < 2:
+            plain = ordered_scatter_add_ref(b, i, v).cpu()
+            plain_err = float((plain - want).abs().max())
+            plain_report[label] = {"bitwise": bool(torch.equal(plain, want)),
+                                   "max_abs_err": plain_err}
+            note = (f"; plain on CUDA (deterministic index_put_) bitwise "
+                    f"{plain_report[label]['bitwise']}, max_abs_err "
+                    f"{plain_err:.3g}")
         log(f"  ordered_scatter_add {label}: {v.shape[0]} updates into "
             f"{b.shape[0]} slots: bitwise {torch.equal(got, want)} "
-            f"(max_abs_err {err}); plain on CUDA (deterministic index_put_) "
-            f"bitwise {plain_report[label]['bitwise']}, max_abs_err "
-            f"{plain_err:.3g}")
+            f"(max_abs_err {err}){note}")
         if not torch.equal(got, want):
             raise AssertionError(f"ordered_scatter_add differs from the "
-                                 f"CPU's sequential sum: {label}")
-    return (base, index, values), max(errs), plain_report
+                                 f"sequential sum: {label}")
+    n, m = graph.num_vertices, graph.num_edges
+    f64 = (torch.zeros(n, dtype=torch.float64, device="cuda"), graph.col_idx,
+           torch.as_tensor(rng.random(m) * 1e-3, device="cuda"))
+    want = np.bincount(f64[1].cpu().numpy(), weights=f64[2].cpu().numpy(),
+                       minlength=n)
+    got = ordered_scatter_add_cuda(*f64).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    errs.append(err)
+    log(f"  ordered_scatter_add float64 at k = m: {m} updates (col_idx) "
+        f"into {n} zeros: bitwise against numpy's bincount "
+        f"{np.array_equal(got, want)} (max_abs_err {err})")
+    if not np.array_equal(got, want):
+        raise AssertionError("the float64 ordered_scatter_add at k = m "
+                             "differs from numpy's bincount")
+    return cases[0][1], f64, max(errs), plain_report
 
 
 def algo_config(policy: str, workers: int = 1024, **kw):
@@ -992,7 +1066,8 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
     log(f"    persistent, first 256 rounds under the profiler: "
         f"{held_p['secs']:.3f} s wall, {pers_dev_ms} ms device, busy share "
         f"{None if pers_dev_ms is None else pers_dev_ms / (1e3 * held_p['secs'])}"
-        f"  [{card}]")
+        f", {out['persistent_first_256']['device_ops'] / 256} device ops a "
+        f"round  [{card}]")
     log(f"    first {out['first_rounds_n']} rounds: kernel {first['ms']} ms "
         f"(events {first['event_ms']:.3f}), plain fused drain "
         f"{first['plain_ms']} ms device ({first['plain_wall_ms']:.1f} ms "
@@ -1162,7 +1237,8 @@ def coloring_path(graph, card: str, small_scale: int) -> dict:
     log(f"    persistent, first 256 rounds under the profiler: "
         f"{held_p['secs']:.3f} s wall, {pers_dev_ms} ms device, busy share "
         f"{None if pers_dev_ms is None else pers_dev_ms / (1e3 * held_p['secs'])}"
-        f"  [{card}]")
+        f", {out['persistent_first_256']['device_ops'] / 256} device ops a "
+        f"round  [{card}]")
     log(f"    first {out['first_rounds_n']} rounds: kernel {first['ms']} ms "
         f"(events {first['event_ms']:.3f}), plain fused drain "
         f"{first['plain_ms']} ms device ({first['plain_wall_ms']:.1f} ms "
@@ -2274,7 +2350,12 @@ def pagerank_stream(graph, deltas, final, card: str) -> dict:
         f"{counts['pagerank_drain']} drain launches, {reseed_sums} float64 "
         f"scatter-adds in the reseeds; {secs:.3f} s (cold drain "
         f"{cold_secs:.3f} s, {cold_info['rounds']} rounds)  [{card}]")
+    reseeds = [r.reseed_seconds for r in res.batches[1:]]
+    log(f"    PageRank reseed: {min(reseeds):.4f}-{max(reseeds):.4f} s a "
+        f"batch over {len(reseeds)} batches, {reseed_sums} float64 ordered "
+        f"scatter-adds at k = m  [{card}]")
     return {"info": res.info, "seconds": secs, "counts": counts,
+            "reseed_seconds": reseeds,
             "max_residue": max_res, "max_diff_vs_cold": diff,
             "diff_over_bound": ratio, "diff_over_10_eps_rank": within_10_eps,
             "invariant": inv, "cold_info": cold_info,
@@ -3089,8 +3170,8 @@ def main() -> int:
     (items, mask), compact_err = check_compact(n_push, dev, rng)
     main_starts, stream_err = check_stream(graph, dev, rng)
     slab_inputs, slab_err = check_stream_slotted(graph, budget, dev, rng)
-    scatter_main, scatter_err, scatter_plain = check_scatter(graph, budget,
-                                                            rng)
+    scatter_main, scatter_f64, scatter_err, scatter_plain = check_scatter(
+        graph, budget, rng)
     torch.backends.cuda.matmul.allow_tf32 = False
     flash_err = check_flash()
 
@@ -3223,22 +3304,55 @@ def main() -> int:
             lambda: ordered_scatter_add_ref(*scatter_main),
             lambda: scatter_main[0].clone().index_add_(
                 0, scatter_main[1], scatter_main[2])),
+        "ordered_scatter_add.f64": (
+            lambda: ordered_scatter_add_cuda(*scatter_f64),
+            lambda: ordered_scatter_add_ref(*scatter_f64),
+            lambda: scatter_f64[0].clone().index_add_(
+                0, scatter_f64[1], scatter_f64[2])),
     }
+    # the float64 sum at k = m takes milliseconds a call (its plain version
+    # a sort of m), so fewer calls
+    reps = {"ordered_scatter_add.f64": (3, 5)}
     times = {}
+    # device ops a call of each kernel's own wrapper, from its profiled calls
+    ops_a_call = {}
     for name, fns in versions.items():
-        by_profiler = [device_profile(fn, reps=20)[0] for fn in fns]
-        by_events = [cuda_ms(fn) for fn in fns]
+        profile_reps, event_reps = reps.get(name, (20, 50))
+        # the profiler now and then keeps no record of a run: up to five
+        # tries a version
+        by_profiler = []
+        for fn in fns:
+            ms = None
+            for _ in range(5):
+                ms, rows = device_profile(fn, reps=profile_reps)
+                if ms is not None:
+                    break
+            by_profiler.append(ms)
+            if fn is fns[0] and ms is not None:
+                ops_a_call[name] = sum(max(1, round(calls / profile_reps))
+                                       for _, _, calls in rows)
+        by_events = [cuda_ms(fn, reps=event_reps, warmup=2) for fn in fns]
         if None in by_profiler:
             times[name] = (by_events, "cuda events", by_events)
         else:
             times[name] = (by_profiler, "profiler device time", by_events)
+    # the redesigned wrappers run their own launches and nothing else: no
+    # library sort or clone beside the scatter-add's four passes, and B2 in
+    # one pass after the fill that zeroes its output
+    for name, want in (("ordered_scatter_add", 4),
+                       ("ordered_scatter_add.f64", 4), ("compact", 2)):
+        if ops_a_call.get(name) != want:
+            raise AssertionError(f"{name}: {ops_a_call.get(name)} device ops "
+                                 f"a call by the profiler, expected {want}")
     # least time: each input read once, each output written once
     bound_bytes = {"lbs": 4 * main_scan.shape[0] + 8 * budget,
                    "compact": 5 * n_push + 4 * n_push + 4,
                    "csr_stream": 4 * 4096 + 2 * 4 * 4096 * 4096,
                    "csr_stream.slotted": 4 * 48 + 2 * 4 * 48 * slab_width,
                    "ordered_scatter_add": 8 * scatter_main[1].shape[0]
-                   + 8 * graph.num_vertices}
+                   + 8 * graph.num_vertices,
+                   "ordered_scatter_add.f64": 12 * graph.num_edges
+                   + 16 * graph.num_vertices}
 
     # the main drain again on each backend, warm, in the order auto,
     # torch, torch, auto so that neither is always first; then one drain of
@@ -3390,7 +3504,7 @@ def main() -> int:
             "bound_ms": 1e3 * bound_bytes[name] / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": ld, "timed_by": timed_by,
             "event_ms": ke, "plain_event_ms": pe, "library_event_ms": le,
-            "shape": shape})
+            "device_ops_a_call": ops_a_call.get(name), "shape": shape})
     # B4's staging (csrc/csr_stream.cuh) runs inside the B3 launch on the
     # megakernel path; its standalone wrapper is not launched there
     kernels[-1]["launches"] = (mega["counts"]["bfs_drain"]
@@ -3415,6 +3529,7 @@ def main() -> int:
         / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": ld,
         "timed_by": timed_by, "event_ms": ke, "plain_event_ms": pe,
         "library_event_ms": le,
+        "device_ops_a_call": ops_a_call.get("csr_stream.slotted"),
         "shape": f"48 starts from slab_ptr, width {slab_width} "
                  f"(SLAB_SLACK x (budget + 1)) of the slab array"})
     kernels.append({
@@ -3466,16 +3581,35 @@ def main() -> int:
                     "(src/repro/algorithms/pagerank.py:122)",
         "launches": pr["counts"]["ordered_scatter_add"],
         "bit_equal": scatter_err == 0, "max_abs_err": scatter_err,
-        "tolerance": "bitwise against the CPU's sequential sum "
-                     "(index_add_ on CPU tensors)",
+        "tolerance": "bitwise against the sequential sum (numpy's add.at)",
         "ms": kd, "plain_ms": pd,
         "bound_ms": 1e3 * bound_bytes["ordered_scatter_add"]
         / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": ld,
         "library": "index_add_ (atomics, not bitwise)", "timed_by": timed_by,
         "event_ms": ke, "plain_event_ms": pe, "library_event_ms": le,
         "plain_on_cuda": scatter_plain,
+        "device_ops_a_call": ops_a_call.get("ordered_scatter_add"),
         "shape": f"f32[{graph.num_vertices}] += f32[{scatter_k}] at "
                  f"int32[{scatter_k}] (a PageRank round's units)"})
+    (kd, pd, ld), timed_by, (ke, pe, le) = times["ordered_scatter_add.f64"]
+    kernels.append({
+        "name": "ordered_scatter_add.f64", "route": "cuda",
+        "source": "src/repro_torch/csrc/ordered_scatter_add.cu",
+        "replaces": "none: the streaming PageRank reseed's sums "
+                    "(src/repro/stream/incremental.py, numpy bincount)",
+        "launches": stream["pagerank"]["counts"]["ordered_scatter_add"],
+        "launched_in": "the PageRank stream's reseeds (phase 4g): one a "
+                       "batch and one a decay sweep",
+        "bit_equal": scatter_err == 0, "max_abs_err": scatter_err,
+        "tolerance": "bitwise against numpy's bincount",
+        "ms": kd, "plain_ms": pd,
+        "bound_ms": 1e3 * bound_bytes["ordered_scatter_add.f64"]
+        / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": ld,
+        "library": "index_add_ (atomics, not bitwise)", "timed_by": timed_by,
+        "event_ms": ke, "plain_event_ms": pe, "library_event_ms": le,
+        "device_ops_a_call": ops_a_call.get("ordered_scatter_add.f64"),
+        "shape": f"f64[{graph.num_vertices}] zeros += f64[{graph.num_edges}]"
+                 f" at col_idx int32[{graph.num_edges}] (k = m)"})
     for name, path, source_file in (
             ("pagerank_drain", pr, "src/repro_torch/csrc/pagerank_drain.cu"),
             ("coloring_drain", col,
@@ -3651,13 +3785,14 @@ def main() -> int:
             "shape": f"rmat({args.scale}) after one delta batch, overlay "
                      f"{stream['overlay']} entries, W={cfg.wavefront}, g1"})
     timed_alone = ("lbs", "compact", "csr_stream", "csr_stream.slotted",
-                   "ordered_scatter_add")
+                   "ordered_scatter_add", "ordered_scatter_add.f64")
     for kern in (k for k in kernels if k["name"] in timed_alone):
         log(f"    {kern['name']}: {kern['ms']:.4f} ms (plain "
             f"{kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
             f"bound {kern['bound_ms']:.4f}; between events {kern['event_ms']:.4f}, "
             f"plain {kern['plain_event_ms']:.4f}, library "
-            f"{kern['library_event_ms']:.4f})  [{card}]")
+            f"{kern['library_event_ms']:.4f}; "
+            f"{kern['device_ops_a_call']} device ops a call)  [{card}]")
     summary = {
         "card": card, "scale": args.scale, "grid_side": side,
         "main": {"n": graph.num_vertices, "m": graph.num_edges,

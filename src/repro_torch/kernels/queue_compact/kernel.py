@@ -2,8 +2,12 @@
 
 Replaces the TPU kernel ``compact_tiles_pallas`` of
 ``repro/kernels/queue_compact/kernel.py`` and its phase-2 stitch in
-``repro/kernels/queue_compact/ops.py``: count, scan and scatter, three
-launches on the current stream.  The count stays on the device.
+``repro/kernels/queue_compact/ops.py``: one launch on the current stream,
+a single pass with decoupled look-back.  The count stays on the device.
+
+The output, the count, the ticket and the tiles' status words lie in one
+allocation that is zeroed before the launch (one fill on the card), so the
+positions past the count are 0 and every word starts unpublished.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ def _lib():
     once, as the push calls this every round."""
     lib = load("compact")
     lib.compact_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_bool,
+                                   ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p]
     lib.compact_launch.restype = ctypes.c_int
@@ -52,13 +57,18 @@ def compact_cuda(items: torch.Tensor, mask: torch.Tensor):
         return (torch.empty(0, dtype=torch.int32, device=items.device),
                 torch.zeros((), dtype=torch.int32, device=items.device))
     launch, tile = _lib()
-    # one allocation: the output, then the count, then the tile offsets
-    buf = torch.empty(n + 1 + -(-n // tile), dtype=torch.int32,
+    # one zeroed allocation: the output and the count, then (on 8 bytes)
+    # the ticket and a status word per tile, two int32 each
+    words = n + 1 + (n + 1) % 2
+    buf = torch.zeros(words + 2 * (1 + -(-n // tile)), dtype=torch.int32,
                       device=items.device)
-    out, count, scratch = buf[:n], buf[n], buf[n + 1:]
+    out, count = buf[:n], buf[n]
+    ticket = buf.data_ptr() + 4 * words
+    items_at, mask_at = items.data_ptr(), mask.data_ptr()
     with torch.cuda.device(items.device):
-        err = launch(items.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
-                     count.data_ptr(), scratch.data_ptr(),
+        err = launch(items_at, mask_at, n,
+                     items_at % 16 == 0 and mask_at % 8 == 0,
+                     out.data_ptr(), count.data_ptr(), ticket + 8, ticket,
                      torch.cuda.current_stream().cuda_stream)
     check_launch(err, "compact")
     compact_cuda.launches += 1

@@ -3,11 +3,16 @@
 It replaces no TPU kernel.  It is the port's deterministic form of
 ``residue.at[nbr].add(contrib)`` (``repro/algorithms/pagerank.py:122``):
 ``torch.index_add_`` on CUDA tensors adds with atomics, in an order that
-changes from run to run, and PageRank's ranks must not.  The wrapper sorts
-the updates stably by index (``torch.sort(stable=True)``, the port's own
-helper, not a TPU kernel); the kernel then gives each run of equal indices
-to one thread, which adds the run's values left to right, that is in
-update order, onto the base value.
+changes from run to run, and PageRank's ranks must not.  The kernel groups
+the updates into one segment per index by atomics, sorts each segment by
+update id and adds it left to right onto the base value, in four launches
+(the source's header has the passes); no library sort runs, and the copy
+of ``base`` rides in the first launch.
+
+Its scratch (a count per slot, the segment arrays) stays on the card
+between calls, one set per device and stream, and grows when ``n`` or
+``k`` does.  The per-slot counts are zero on entry: the kernel sets each
+back to 0 as it closes the segment, so no call clears them.
 """
 from __future__ import annotations
 
@@ -18,17 +23,52 @@ import torch
 
 from ..build import check_launch, load
 
+#: (device index, stream handle) -> (counts int32, zero between calls; work
+#: uint8)
+_SCRATCH: dict = {}
+
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn(dtype: torch.dtype):
+def _lib():
     lib = load("ordered_scatter_add")
-    fn = (lib.ordered_scatter_add_launch if dtype == torch.float32
-          else lib.ordered_scatter_add_f64_launch)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    for fn in (lib.ordered_scatter_add_launch,
+               lib.ordered_scatter_add_f64_launch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.ordered_scatter_add_counts.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ordered_scatter_add_counts.restype = ctypes.c_longlong
+    lib.ordered_scatter_add_work_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_int]
+    lib.ordered_scatter_add_work_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _sizes(n: int, k: int, elem: int) -> tuple:
+    """``(ints of counts, bytes of work)`` for ``n`` slots and ``k`` updates
+    of ``elem`` bytes; read once a shape, as PageRank calls this every
+    round."""
+    lib = _lib()
+    return (lib.ordered_scatter_add_counts(n, k),
+            lib.ordered_scatter_add_work_bytes(n, k, elem))
+
+
+def _scratch(device: torch.device, stream: int, n: int, k: int,
+             elem: int) -> tuple:
+    """The counts and work buffers of ``stream`` on ``device``, grown to
+    ``n`` slots and ``k`` updates of ``elem`` bytes.  A grown counts buffer
+    is new zeros (every call leaves it zero); the work buffer needs no
+    clearing."""
+    counts, work = _SCRATCH.get((device.index, stream), (None, None))
+    need_counts, need_work = _sizes(n, k, elem)
+    if counts is None or counts.numel() < need_counts:
+        counts = torch.zeros(need_counts, dtype=torch.int32, device=device)
+    if work is None or work.numel() < need_work:
+        work = torch.empty(need_work, dtype=torch.uint8, device=device)
+    _SCRATCH[(device.index, stream)] = (counts, work)
+    return counts, work
 
 
 def ordered_scatter_add_cuda(base: torch.Tensor, index: torch.Tensor,
@@ -52,17 +92,23 @@ def ordered_scatter_add_cuda(base: torch.Tensor, index: torch.Tensor,
                          f"{tuple(index.shape)}, {tuple(values.shape)}")
     if index.shape[0] >= 2 ** 31 or base.shape[0] >= 2 ** 31:
         raise ValueError("more updates or slots than the kernel indexes")
-    out = base.contiguous().clone()
-    k = index.shape[0]
-    if k == 0:
-        return out
-    keys, order = torch.sort(index.to(torch.int32), stable=True)
-    order = order.to(torch.int32)
+    n, k = base.shape[0], index.shape[0]
+    if k == 0 or n == 0:
+        return base.clone()
+    base = base.contiguous()
+    index = index.to(torch.int32).contiguous()
     values = values.contiguous()
+    out = torch.empty_like(base)
+    lib = _lib()
+    launch = (lib.ordered_scatter_add_launch if base.dtype == torch.float32
+              else lib.ordered_scatter_add_f64_launch)
     with torch.cuda.device(base.device):
-        err = _launch_fn(base.dtype)(
-            out.data_ptr(), out.shape[0], keys.data_ptr(), order.data_ptr(),
-            values.data_ptr(), k, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        counts, work = _scratch(base.device, stream, n, k,
+                                base.element_size())
+        err = launch(out.data_ptr(), base.data_ptr(), n, index.data_ptr(),
+                     values.data_ptr(), k, counts.data_ptr(),
+                     work.data_ptr(), stream)
     check_launch(err, "ordered_scatter_add")
     ordered_scatter_add_cuda.launches += 1
     return out

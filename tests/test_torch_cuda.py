@@ -48,7 +48,8 @@ def test_lbs_kernel_matches_plain(w, budget):
     assert torch.equal(o, ro) and torch.equal(r, rr)
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 257, 1023, 1024, 1025, 499712])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1023, 1024, 1025, 499712,
+                               4095, 4096, 4097, 131073, 2 ** 24])
 @pytest.mark.parametrize("p", [0.0, 0.3, 1.0])
 def test_compact_kernel_matches_plain(n, p):
     _require_cuda()
@@ -61,6 +62,84 @@ def test_compact_kernel_matches_plain(n, p):
     out, cnt = compact_cuda(items, mask)
     rout, rcnt = compact_ref(items, mask)
     assert torch.equal(out, rout) and int(cnt) == int(rcnt)
+
+
+def _compact_inputs(n, p, seed):
+    rng = np.random.default_rng(seed)
+    items = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, size=n)
+                             .astype(np.int32)).cuda()
+    return items, torch.from_numpy(rng.random(n) < p).cuda()
+
+
+def test_compact_same_input_three_times_and_unaligned():
+    """Each call starts from its own zeroed status words and ticket: the
+    same input three times in a row gives the same output, and so do
+    inputs off the 16-byte grid (the kernel's scalar loads) between
+    them."""
+    _require_cuda()
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+
+    items, mask = _compact_inputs(499712, 0.3, 5)
+    want = compact_ref(items, mask)
+    for _ in range(3):
+        out, cnt = compact_cuda(items, mask)
+        assert torch.equal(out, want[0]) and int(cnt) == int(want[1])
+        odd_items, odd_mask = items[1:], mask[1:]
+        odd = compact_cuda(odd_items, odd_mask)
+        ref = compact_ref(odd_items, odd_mask)
+        assert torch.equal(odd[0], ref[0]) and int(odd[1]) == int(ref[1])
+
+
+def test_compact_on_two_streams():
+    """Calls alternating on two streams, with no wait between them, each
+    on its own zeroed buffer."""
+    _require_cuda()
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+
+    inputs = [_compact_inputs(300_000 + 4096 * i, 0.3 + 0.2 * i, i)
+              for i in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[i].append(compact_cuda(*inputs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        want = compact_ref(*inputs[i])
+        for out, cnt in got[i]:
+            assert torch.equal(out, want[0]) and int(cnt) == int(want[1])
+
+
+def _device_ops(fn, calls):
+    """The names of the device ops (kernels, copies, fills) of ``calls``
+    calls, with their counts, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def test_compact_is_one_launch_a_call():
+    _require_cuda()
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+
+    items, mask = _compact_inputs(499712, 0.3, 6)
+    ops = _device_ops(lambda: compact_cuda(items, mask), 5)
+    kernels = {name: n for name, n in ops.items() if "compact" in name}
+    fills = {name: n for name, n in ops.items() if "compact" not in name}
+    # one launch of the kernel a call, beside the fill that zeroes its
+    # output; the profiler may drop records, never add them
+    assert list(kernels) and sum(kernels.values()) <= 5, ops
+    assert all("fill" in name.lower() or "memset" in name.lower()
+               for name in fills) and sum(fills.values()) <= 5, ops
 
 
 @pytest.mark.parametrize("policy", ["single.persistent", "single.discrete",
@@ -596,6 +675,168 @@ def test_ordered_scatter_add_f64_matches_numpy_bincount(case):
         index.cuda(), values.cuda())
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _sequential(base, index, values):
+    """numpy's unbuffered ``add.at``: each update in turn, in the array's
+    own precision."""
+    out = base.copy()
+    np.add.at(out, index, values)
+    return out
+
+
+def _segment_inputs(length, dtype, seed):
+    """A slot (17) whose segment has ``length`` updates, interleaved at
+    random with updates to 999 other slots, at mixed magnitudes."""
+    rng = np.random.default_rng(seed)
+    n, k = 1000, 2 * length + 100
+    index = rng.integers(0, n, size=k)
+    index[index == 17] = 18
+    index[rng.choice(k, size=length, replace=False)] = 17
+    values = rng.standard_normal(k) * 10.0 ** rng.integers(-8, 8, size=k)
+    base = rng.random(n)
+    return (base.astype(dtype), index.astype(np.int32), values.astype(dtype))
+
+
+@pytest.mark.parametrize("length", [1, 2, 8, 9, 64, 65, 2048, 2049, 100_000])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ordered_scatter_add_at_every_tier_edge(length, dtype):
+    """Segment lengths at each edge of the thread (8), warp (64), block
+    (2048) and merge tiers, bit for bit against the sequential sum."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    base, index, values = _segment_inputs(length, dtype, length)
+    got = ordered_scatter_add_cuda(*(torch.from_numpy(x).cuda() for x in (
+        base, index, values)))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _sequential(base, index, values))
+
+
+def test_ordered_scatter_add_base_off_the_16_byte_grid():
+    """A base that is a view 4 bytes into its storage is copied a value a
+    thread, not 16 bytes at a time."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    base, index, values = _segment_inputs(65, np.float32, 1)
+    whole = torch.from_numpy(np.concatenate([[7.0], base]).astype(
+        np.float32)).cuda()
+    got = ordered_scatter_add_cuda(whole[1:], torch.from_numpy(index).cuda(),
+                                   torch.from_numpy(values).cuda())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _sequential(base, index, values))
+
+
+def test_ordered_scatter_add_many_segments_past_a_block():
+    """3,000 segments of 2,049 to 2,400 updates each in one call, shuffled:
+    each goes through the merge tier, which must not read the whole call
+    per segment."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(2049, 2401, size=3000)
+    index = rng.permutation(np.repeat(np.arange(3000) * 7, lengths))
+    values = (rng.standard_normal(index.size)
+              * 10.0 ** rng.integers(-6, 6, size=index.size))
+    base = rng.random(21_000).astype(np.float32)
+    index, values = index.astype(np.int32), values.astype(np.float32)
+    # numpy's add.at, not the CPU's index_add_: at millions of updates
+    # index_add_ splits the work over threads and is no longer in order
+    got = ordered_scatter_add_cuda(*(torch.from_numpy(x).cuda() for x in (
+        base, index, values)))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _sequential(base, index, values))
+
+
+def test_ordered_scatter_add_f64_at_k_equals_m_of_rmat16():
+    """The streaming reseed's sum at rmat(16): the float64 instance over
+    every edge (col_idx as the index) from zeros, against numpy's
+    bincount."""
+    _require_cuda()
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    g = rmat(16, edge_factor=16, seed=1, device="cuda")
+    col = g.col_idx.cpu().numpy()
+    w = np.random.default_rng(4).random(col.size) * 1e-3
+    want = np.bincount(col, weights=w, minlength=g.num_vertices)
+    got = ordered_scatter_add_cuda(
+        torch.zeros(g.num_vertices, dtype=torch.float64, device="cuda"),
+        g.col_idx, torch.from_numpy(w).cuda())
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _held_scratch():
+    from repro_torch.kernels.scatter_add import kernel
+
+    return kernel._SCRATCH[(torch.cuda.current_device(),
+                            torch.cuda.current_stream().cuda_stream)]
+
+
+def test_ordered_scatter_add_scratch_is_clean_across_calls():
+    """Calls one after another as n and k grow: every result bitwise, and
+    the per-slot counts (and the words before them) zero after each."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    for i, (n, length) in enumerate([(1000, 70), (1000, 70), (5000, 3000),
+                                     (5000, 9), (70_000, 2100)]):
+        base, index, values = _segment_inputs(length, np.float32, i)
+        base = np.resize(base, n)
+        index = np.where(index % 3 == 0, index * 7 % n, index)
+        got = ordered_scatter_add_cuda(*(torch.from_numpy(x).cuda() for x in (
+            base, index.astype(np.int32), values)))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      _sequential(base, index, values))
+        counts, _ = _held_scratch()
+        assert int(counts.abs().sum()) == 0
+
+
+def test_ordered_scatter_add_on_two_streams():
+    """Calls alternating on two streams with no wait between them: each
+    stream has scratch of its own, so each result is bitwise."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    inputs = [_segment_inputs(length, np.float64, length)
+              for length in (3000, 65)]
+    want = [_sequential(*x) for x in inputs]
+    on_card = [tuple(torch.from_numpy(x).cuda() for x in xs) for xs in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[i].append(ordered_scatter_add_cuda(*on_card[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in got[i]:
+            np.testing.assert_array_equal(out.cpu().numpy(), want[i])
+
+
+def test_ordered_scatter_add_sorts_nothing_and_launches_four_kernels():
+    """No library sort and no separate copy: each call is the kernel's four
+    launches."""
+    _require_cuda()
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    base, index, values = (torch.from_numpy(x).cuda() for x in
+                           _segment_inputs(3000, np.float32, 9))
+    ops = _device_ops(lambda: ordered_scatter_add_cuda(base, index, values),
+                      5)
+    assert not any("sort" in name.lower() or "copy" in name.lower()
+                   or "memcpy" in name.lower() for name in ops), ops
+    assert sum(ops.values()) <= 4 * 5, ops
 
 
 def _drain_kernel_of(algo):

@@ -96,6 +96,20 @@ def test_compact_plain_matches_jax(n, p):
     assert cnt.dim() == 0
 
 
+@pytest.mark.parametrize("n", [3072, 4097, 10_001, 65_537])
+@pytest.mark.parametrize("p", [0.0, 0.3, 1.0])
+def test_compact_plain_matches_jax_across_many_tiles(n, p):
+    """N across many 1024-item tiles (and the CUDA kernel's 4096-item
+    tiles), against JAX's ``compact_ref``."""
+    rng = np.random.default_rng(n + int(p * 10))
+    items = rng.integers(-2 ** 31, 2 ** 31 - 1, size=n).astype(np.int32)
+    mask = rng.random(n) < p
+    out, cnt = compact(torch.from_numpy(items), torch.from_numpy(mask))
+    jout, jcnt = j_compact_ref(jnp.asarray(items), jnp.asarray(mask))
+    _eq(out, jout)
+    assert int(cnt) == int(jcnt)
+
+
 def test_compact_is_stable():
     out, cnt = compact_ref(torch.arange(600, dtype=torch.int32),
                            torch.arange(600) % 3 == 0)

@@ -436,6 +436,29 @@ def test_ordered_scatter_add_plain_matches_a_left_to_right_loop(case):
         assert pairwise != want[5]
 
 
+@pytest.mark.parametrize("length", [1, 8, 9, 64, 65, 2048, 2049, 100_000])
+def test_ordered_scatter_add_plain_matches_jax_at_every_tier_edge(length):
+    """A slot whose segment has ``length`` updates (the CUDA kernel's tier
+    edges: thread 8, warp 64, block 2048, merge past it), interleaved with
+    updates to other slots at mixed magnitudes, against JAX's
+    ``x.at[idx].add(v)`` on the CPU, bit for bit."""
+    rng = np.random.default_rng(length)
+    n, k = 1000, 2 * length + 100
+    index = rng.integers(0, n, size=k)
+    index[index == 17] = 18
+    index[rng.choice(k, size=length, replace=False)] = 17
+    index = index.astype(np.int32)
+    values = (rng.standard_normal(k)
+              * 10.0 ** rng.integers(-8, 8, size=k)).astype(np.float32)
+    base = rng.random(n).astype(np.float32)
+    want = np.asarray(jnp.asarray(base).at[jnp.asarray(index)].add(
+        jnp.asarray(values)))
+    for fn in (ordered_scatter_add_ref, ordered_scatter_add):
+        got = fn(torch.from_numpy(base), torch.from_numpy(index),
+                 torch.from_numpy(values))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_ordered_scatter_add_refuses_cpu_tensors_on_the_cuda_backend():
     from repro_torch.kernels.scatter_add.kernel import (
         ordered_scatter_add_cuda)

@@ -78,6 +78,36 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int) -> dict:
     return out
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def alternate(script: str, trees: list, flags: list) -> list:
+    """Run ``script TREES... FLAGS --turn TREE`` for each tree in the order
+    TREES, then TREES reversed (OLD NEW NEW OLD for two), each turn a
+    process of its own.  Prints each turn's JSON line (its last line of
+    output) with the tree's place in TREES; returns the readings of each
+    tree, in the order of TREES."""
+    readings = [[] for _ in trees]
+    order = [*range(len(trees)), *reversed(range(len(trees)))]
+    for at in order:
+        done = subprocess.run(
+            [sys.executable, script, *map(str, trees), *flags,
+             "--turn", str(trees[at])], capture_output=True, text=True)
+        if done.returncode != 0:
+            sys.stderr.write(done.stderr)
+            raise SystemExit(f"the turn of {trees[at]} failed "
+                             f"({done.returncode})")
+        result = json.loads(done.stdout.strip().splitlines()[-1])
+        readings[at].append(result)
+        print(json.dumps({"turn": at, **result}), flush=True)
+    return readings
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old", type=Path)
@@ -91,30 +121,16 @@ def main() -> int:
         print(json.dumps(turn(args.turn.resolve(), args.scale, args.reps,
                               args.pagerank_rounds)), flush=True)
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    trees = {"old": args.old.resolve(), "new": args.new.resolve()}
-    readings = {"old": [], "new": []}
-    for label in ("old", "new", "new", "old"):
-        done = subprocess.run(
-            [sys.executable, __file__, str(args.old), str(args.new),
-             "--scale", str(args.scale), "--reps", str(args.reps),
-             "--pagerank-rounds", str(args.pagerank_rounds),
-             "--turn", str(trees[label])],
-            capture_output=True, text=True)
-        if done.returncode != 0:
-            sys.stderr.write(done.stderr)
-            raise SystemExit(f"the {label} turn failed ({done.returncode})")
-        result = json.loads(done.stdout.strip().splitlines()[-1])
-        readings[label].append(result)
-        print(json.dumps({"turn": label, **result}), flush=True)
-    print(card)
+    readings = alternate(__file__, [args.old.resolve(), args.new.resolve()],
+                         ["--scale", str(args.scale), "--reps",
+                          str(args.reps), "--pagerank-rounds",
+                          str(args.pagerank_rounds)])
+    name = card()
+    print(name)
     print(json.dumps({"median_ms": {
         label: {algo: statistics.median(
             ms for r in runs for ms in r["ms"][algo]) for algo in DRAINS}
-        for label, runs in readings.items()}, "card": card,
+        for label, runs in zip(("old", "new"), readings)}, "card": name,
         "scale": args.scale}))
     return 0
 
