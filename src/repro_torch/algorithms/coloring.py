@@ -35,8 +35,7 @@ from ..core.frontier import search_for
 from ..graph.csr import CSRGraph
 from ..runtime.program import AtosProgram, ProgramContext
 from ..runtime.programs import reject_unknown_params
-from .common import (chunking_for, edge_sources, edge_targets, max_degree_of,
-                     scatter_set)
+from .common import chunking_for, edge_sources, edge_targets, scatter_set
 
 _I32 = torch.int32
 _U32 = 0xFFFFFFFF
@@ -267,7 +266,6 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     n = graph.num_vertices
     codec, threshold = chunking_for(cfg)
     budget = flat_budget(graph, cfg.wavefront * cfg.granularity)
-    max_degree = max_degree_of(graph)
 
     def make_body(body_graph: CSRGraph, ctx: ProgramContext):
         return make_wavefront_fn(body_graph, budget, codec=codec,
@@ -285,7 +283,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         def run(carry, limit=None):
             return coloring_drain_cuda(carry, rp, cols, overlay=overlay,
                                        wavefront=ctx.wavefront,
-                                       max_degree=max_degree,
+                                       degree_budget=budget,
                                        max_rounds=max_rounds, limit=limit,
                                        granularity=codec.granularity,
                                        split_threshold=threshold)

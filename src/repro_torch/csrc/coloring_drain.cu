@@ -30,16 +30,45 @@
 //   6. counters work += assign vertices, splits += the windows split,
 //               processed += k, rounds and the WorkCounter's rounds += 1.
 //
-// A vertex has at most one task in the queue, so the commits have unique
-// targets.  The forbidden colors of a vertex are a bitset of deg + 1 bits in
-// shared memory (the pick never exceeds deg): a row of degree below 1024
-// takes one warp and a 32-word bitset of its own, a larger row the whole
-// block and a bitset sized for the graph's largest degree (12.8 KB at
-// rmat(21)'s 102,430), so a hub is never left to one thread.  Detects are
-// split the same way.  Five grid barriers a round (six at G > 1): after the
-// picks, after the commits, after the detects, (after the window reads,)
-// after the push counts and after the ring write.  Structure, barriers and
-// the push are drain_common.cuh's.
+// A vertex has at most one task in the queue, so a round's vertex lanes
+// are distinct vertices and the commits have unique targets.
+//
+// Load-balanced visits.  Every block holds the popped items and S, the
+// inclusive scan of its vertex lanes' degrees (0 for a lane without a
+// vertex), in shared memory.  The degrees are read from row_ptr once in the
+// grid, into lane_deg: the first wavefront's before the launch's first grid
+// barrier, each next one's during the push (the tasks already waiting in
+// the ring in the push-count phase, each pushed task by the thread that
+// writes it), so a block's pop reads them back coalesced.  The round's
+// V = S[W G - 1] neighbor visits are cut into equal contiguous slices, one
+// a warp of the grid, whatever the rows' lengths: a warp finds the lane of
+// its first visit by a search of S and walks the slice 128 visits a step,
+// each thread finding its visits' lanes by galloping searches from the
+// step's first lane.  No row, however long, rests on one warp or one block.
+// Pick and detect are order-independent, so the slices may split a row
+// anywhere:
+//
+//   * the pick's forbidden colors are a bitset in global scratch, deg + 1
+//     bits a lane, lane f's words from f + (S[f - 1] / 32) (disjoint, and
+//     W G + V / 32 words in all, at most the program's degree budget / 32 +
+//     W G).  A warp merges its step's bits by (lane, word) (match and
+//     reduce), keeps the bits of the row its step ends in in shared memory
+//     while the row goes on, the warps of a block that end in one row merge
+//     theirs, and only then are they ORed into global memory: at most one
+//     atomicOr per (warp, lane, word), none per visit;
+//   * after a grid barrier every read of the round-start colors is done, so
+//     the pass that finds a lane's first free bit commits colors[v] at once
+//     (a thread a lane, its warp for a lane whose first 32 colors are all
+//     taken);
+//   * the detects walk the same slices on the post-commit colors and mark a
+//     lane that re-colors with a plain store of 1; in the same phase the
+//     grid zeroes the round's bitset words, so the scratch is clean without
+//     a memset; the push reads each mark and sets it back to 0.
+//
+// Five grid barriers a round (six at G > 1): after the ORs, after the
+// commits, after the detects, (after the window adds,) after the push
+// counts and after the ring write.  Structure, barriers and the push are
+// drain_common.cuh's.
 //
 // Modes.  The fused mode (B3-fused) drains lane 0 of the fused topology's
 // one-lane MultiQueue: a popped word is unpacked to its task and a pushed
@@ -54,7 +83,7 @@
 //
 // What bounds the drain on an H100: bytes, 8 per neighbor visited (its
 // col_idx word and its color) for every assign and every detect, and the
-// barriers.  Right first, fast later.
+// barriers.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +95,9 @@ using namespace drain;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmallDeg = 1024;  // rows below this degree take one warp
+constexpr int kVisits = 4;              // visits a thread takes a step
+constexpr int kStep = 32 * kVisits;     // visits a warp takes a step
+constexpr int kBatch = 8;               // words a thread pops at a time
 
 struct Drain {
   int* buf;  // [cap] the task ring, updated in place
@@ -81,12 +112,17 @@ struct Drain {
   int max_rounds;
   Codec codec;
   Windows win;    // the re-assigns' chunk windows
-  int* pick;      // [W G] the color each assign vertex lane picked
-  int* bad;       // [W G] what a detect vertex lane pushes, plus one; 0 none
+  int* bad;       // [W G] a detect lane's mark, then what it pushes plus
+                  // one; zero between rounds
+  unsigned* bits;  // [bits_cap] the forbidden-color bitsets; zero between
+                   // rounds
+  int bits_cap;
+  int* lane_deg;   // [W G] the degree of each vertex lane of the next
+                   // round's wavefront (0 for none)
   int* block_count;       // [gridDim.x] push count of each block
   unsigned int* barrier;  // [2] arrivals, generation; zero at launch
   int* wave_global;  // [gridDim.x][W (1 + G)] when the wavefront and its
-                     // vertex degrees do not fit in shared memory, else null
+                     // degree scan do not fit in shared memory, else null
   long long* visits;  // out: neighbors visited by the picks and detects
   TraceRing trace;    // the traced mode's ring
 };
@@ -128,6 +164,64 @@ __device__ __forceinline__ int neighbor(const Drain& d, int lo, int v, int j) {
   }
 }
 
+// In place, the int32 inclusive scan of s[0 : n] by the block.  Each warp
+// scans a contiguous segment, 32 words a step with neighbouring lanes on
+// neighbouring words (no bank conflicts), and adds the totals of the
+// segments before it in a second pass.  Every thread of the block must call
+// it; it ends with the block synchronized.
+__device__ void scan_lanes(int* s, int n, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = ((n + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(warp * per, n);
+  const int hi = min(lo + per, n);
+  unsigned carry = 0u;
+  for (int b = lo; b < hi; b += 32) {
+    const int i = b + lane;
+    unsigned x = i < hi ? static_cast<unsigned>(s[i]) : 0u;
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, x, off);
+      if (lane >= off) x += y;
+    }
+    if (i < hi) s[i] = static_cast<int>(carry + x);
+    carry += __shfl_sync(kFull, x, 31);
+  }
+  if (lane == 0) warp_sums[warp] = static_cast<int>(carry);
+  __syncthreads();
+  unsigned before = 0u;
+  for (int w = 0; w < warp; ++w) before += static_cast<unsigned>(warp_sums[w]);
+  for (int i = lo + lane; i < hi && before; i += 32) {
+    s[i] = static_cast<int>(static_cast<unsigned>(s[i]) + before);
+  }
+  __syncthreads();
+}
+
+// The first j >= f with s[j] > q, where every j < f has s[j] <= q and
+// some j < n has s[j] > q: a galloping search, O(log) of the distance.
+__device__ __forceinline__ int owner_from(const int* s, int n, int f, int q) {
+  int lo = f;
+  int step = 1;
+  int hi = n;
+  while (lo < n) {
+    const int p = min(lo + step - 1, n - 1);
+    if (s[p] > q) {
+      hi = p;
+      break;
+    }
+    lo = p + 1;
+    step <<= 1;
+  }
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] > q) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
 // Two blocks an SM where shared memory allows: at most 64 registers a
 // thread.  kChunks = false is the G = 1 instance, whose codec is the
 // compile-time identity: no division by G, no window code.  kPacked is the
@@ -135,10 +229,9 @@ __device__ __forceinline__ int neighbor(const Drain& d, int lo, int v, int j) {
 template <bool kChunks, bool kPacked, bool kTraced, bool kSlotted>
 __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   extern __shared__ int dyn[];
-  __shared__ unsigned warp_bits[kWarps][32];
+  __shared__ unsigned acc[kWarps][32];  // each warp's bits of an open row
+  __shared__ int open_row[kWarps];      // the row of each warp's acc
   __shared__ int warp_sums[kWarps];
-  __shared__ int s_pick;
-  __shared__ int s_clash;
   const int W = d.wavefront;
   const Codec cc = kChunks ? d.codec : Codec{1, 0};
   const int WG = W * cc.G;
@@ -148,16 +241,10 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   const int G = gridDim.x;
   const int gwarp = blockIdx.x * kWarps + warp;
   const int n_warps = G * kWarps;
-  int* items;
-  unsigned* big;
-  if (d.wave_global) {
-    items = d.wave_global + static_cast<size_t>(blockIdx.x) * (W + WG);
-    big = reinterpret_cast<unsigned*>(dyn);
-  } else {
-    items = dyn;
-    big = reinterpret_cast<unsigned*>(dyn + W + WG);
-  }
-  int* degs = items + W;  // [W G] a vertex lane's degree, -1 for none
+  int* items = d.wave_global
+                   ? d.wave_global + static_cast<size_t>(blockIdx.x) * (W + WG)
+                   : dyn;
+  int* S = items + W;  // [W G] the inclusive scan of the lanes' degrees
 
   int head = d.cursors[kHead];
   int tail = d.cursors[kTail];
@@ -170,185 +257,304 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
   const int limit = d.cursors[kLimit];
   Tracer<kTraced> tracer;
   tracer.begin(d.trace);
+  acc[warp][lane] = 0u;
+
+  // the degrees of the vertex lanes of wavefront lane l, whose task is
+  // item, into lane_deg: each is computed once in the grid, by the thread
+  // that has the task, before the grid barrier that precedes the pop
+  auto put_degrees = [&](int l, int item) {
+    const int c = code_of(item);
+    const int h = chunk_head(c, cc);
+    const int width = chunk_width(c, cc);
+    for (int j = 0; j < cc.G; ++j) {
+      d.lane_deg[l * cc.G + j] =
+          j < width ? __ldg(d.row_ptr + h + j + 1) - __ldg(d.row_ptr + h + j)
+                    : 0;
+    }
+  };
+  const int gthread = blockIdx.x * kThreads + tid;
+  const int n_threads = G * kThreads;
+  for (int l = gthread; l < min(wrap_sub(tail, head), W); l += n_threads) {
+    put_degrees(l, lane_load<kPacked>(
+                       __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap))));
+  }
   // every block has read the cursors before block 0 may write them back
   grid_barrier(d.barrier);
 
-  // the vertex of vertex lane f (valid where degs[f] >= 0)
+  int K = 0;  // vertex lanes in play this round
+  // the vertex of vertex lane f
   auto vertex_of = [&](int f) {
     return chunk_head(code_of(items[f / cc.G]), cc) + f % cc.G;
   };
+  // 1 for an assign vertex lane, -1 for a detect one, 0 for no vertex
+  auto kind_of = [&](int f) {
+    if (f >= K) return 0;
+    const int item = items[f / cc.G];
+    if (kChunks && f % cc.G >= chunk_width(code_of(item), cc)) return 0;
+    return item > 0 ? 1 : -1;
+  };
+  auto before = [&](int f) { return f > 0 ? S[f - 1] : 0; };
+  // the first bitset word of lane f
+  auto word_of = [&](int f) { return f + before(f) / 32; };
+
+  // Walk this warp's slice of the round's visits, those of the lanes of
+  // kind `want` (the lanes of the other kind are stepped over), 128 a
+  // step: stepped(f_last) with the lane of the step's last visit, then
+  // visit(fs, js, oks) with the thread's kVisits visits of the step, visit
+  // i of lane fs[i] at offset js[i] (oks[i] false past the slice or on
+  // another kind's lane), so that their loads can all be in flight at
+  // once.  Every lane of the warp takes every call.
+  auto walk = [&](int V, int want, auto visit, auto stepped) {
+    const long long all = V;
+    const long long per = (all + n_warps - 1) / n_warps;
+    const int s0 = static_cast<int>(min(per * gwarp, all));
+    const int s1 = static_cast<int>(min(per * (gwarp + 1), all));
+    if (s0 >= s1) return;
+    int x = s0;
+    int f = upper_bound(S, WG, x);
+    while (true) {
+      while (x < s1 && kind_of(f) != want) {  // a lane of the other kind
+        x = S[f];
+        if (x < s1) f = owner_from(S, WG, f + 1, x);
+      }
+      if (x >= s1) break;
+      const int end = min(x + kStep, s1);
+      const int f_last = owner_from(S, WG, f, end - 1);
+      stepped(f_last);
+      int fs[kVisits], js[kVisits];
+      bool oks[kVisits];
+#pragma unroll
+      for (int i = 0; i < kVisits; ++i) {
+        const int q = x + lane + 32 * i;
+        const bool in = q < end;
+        fs[i] = in ? owner_from(S, WG, f, q) : f;
+        js[i] = q - before(fs[i]);
+        oks[i] = in && kind_of(fs[i]) == want;
+      }
+      visit(fs, js, oks);
+      x = end;
+      if (x < s1) f = owner_from(S, WG, f_last, x);
+    }
+  };
 
   long long visits = 0;
-  const int per_thread = (W + kThreads - 1) / kThreads;
-  const int l0 = min(tid * per_thread, W);
-  const int l1 = min(l0 + per_thread, W);
-  const int per_thread_f = (WG + kThreads - 1) / kThreads;
-  const int f0 = min(tid * per_thread_f, WG);
-  const int f1 = min(f0 + per_thread_f, WG);
   while (rounds < d.max_rounds && rounds < limit && wrap_sub(tail, head) > 0) {
     const int size = wrap_sub(tail, head);
     const int k = size < W ? size : W;
-    const int K = k * cc.G;  // vertex lanes in play
+    K = k * cc.G;
     const unsigned r = static_cast<unsigned>(rounds) + 1u;
 
-    // 1. pop, each vertex lane's degree, the assign vertices
+    // 1. pop, the vertex lanes' degrees (0 for none, from lane_deg)
+    // scanned into S, the assign vertices; neighbouring threads read
+    // neighbouring words, kBatch loads a thread in flight together
     int assign_local = 0;
-    for (int l = l0; l < l1; ++l) {
-      int item = kEmpty;
-      if (l < k) {
-        item = lane_load<kPacked>(
-            __ldcg(d.buf + ring_slot(wrap_add(head, l), d.cap)));
-        if (item > 0) assign_local += chunk_width(code_of(item), cc);
+    for (int l = tid; l < W; l += kBatch * kThreads) {
+      int item[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int at = l + i * kThreads;
+        item[i] = at < k ? lane_load<kPacked>(__ldcg(
+                               d.buf + ring_slot(wrap_add(head, at), d.cap)))
+                         : kEmpty;
       }
-      items[l] = item;
-      if (!kChunks) {  // G = 1: lane l is vertex lane l, read here
-        int deg = -1;
-        if (l < k) {
-          const int v = code_of(item);
-          deg = __ldg(d.row_ptr + v + 1) - __ldg(d.row_ptr + v);
-        }
-        degs[l] = deg;
-      }
-    }
-    if (kChunks) {
-      __syncthreads();
-      for (int f = f0; f < f1; ++f) {
-        int deg = -1;
-        if (f < K && f % cc.G < chunk_width(code_of(items[f / cc.G]), cc)) {
-          const int v = vertex_of(f);
-          deg = __ldg(d.row_ptr + v + 1) - __ldg(d.row_ptr + v);
-        }
-        degs[f] = deg;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int at = l + i * kThreads;
+        if (at < W) items[at] = item[i];
+        if (item[i] > 0) assign_local += chunk_width(code_of(item[i]), cc);
       }
     }
+    for (int f = tid; f < WG; f += kBatch * kThreads) {
+      int deg[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int at = f + i * kThreads;
+        deg[i] = at < K ? __ldcg(d.lane_deg + at) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (f + i * kThreads < WG) S[f + i * kThreads] = deg[i];
+      }
+    }
+    __syncthreads();
+    scan_lanes(S, WG, warp_sums);
     const int n_assign = block_sum<kThreads>(assign_local, warp_sums);
+    const int V = S[WG - 1];
+    // distinct vertices keep the bitsets inside the degree budget
+    if (WG + V / 32 > d.bits_cap) __trap();
 
-    // 2. picks from the round-start colors: small rows by warps ...
-    for (int f = gwarp; f < K; f += n_warps) {
-      const int item = items[f / cc.G];
-      const int deg = degs[f];
-      if (item <= 0 || deg < 0 || deg >= kSmallDeg) continue;
-      const int v = vertex_of(f);
-      const int lo = __ldg(d.row_ptr + v);
-      unsigned* bits = warp_bits[warp];
-      bits[lane] = 0u;
+    // 2. the forbidden colors of each assign lane, from the round-start
+    // colors: each warp's slice, its bits merged by (lane, word), the bits
+    // of the row its step ends in kept in acc while the row goes on
+    int f_open = -1;
+    auto flush = [&]() {
+      if (f_open >= 0) {
+        const unsigned word = acc[warp][lane];
+        if (word) atomicOr(d.bits + word_of(f_open) + lane, word);
+        acc[warp][lane] = 0u;
+      }
       __syncwarp();
-      for (int j = lane; j < deg; j += 32) {
-        const int c = __ldcg(d.colors + neighbor<kSlotted>(d, lo, v, j));
-        if (c >= 0 && c <= deg) atomicOr(bits + (c >> 5), 1u << (c & 31));
+    };
+    walk(
+        V, 1,
+        [&](const int(&fs)[kVisits], const int(&js)[kVisits],
+            const bool(&oks)[kVisits]) {
+          int u[kVisits];
+          int c[kVisits];
+#pragma unroll
+          for (int i = 0; i < kVisits; ++i) {
+            const int v = vertex_of(fs[i]);
+            u[i] = oks[i] ? neighbor<kSlotted>(d, __ldg(d.row_ptr + v), v,
+                                               js[i])
+                          : 0;
+          }
+#pragma unroll
+          for (int i = 0; i < kVisits; ++i) {
+            c[i] = oks[i] ? __ldcg(d.colors + u[i]) : -1;
+          }
+#pragma unroll
+          for (int i = 0; i < kVisits; ++i) {
+            const int f = fs[i];
+            const bool hit = oks[i] && c[i] >= 0 && c[i] <= S[f] - before(f);
+            visits += oks[i];
+            if (!__any_sync(kFull, hit)) continue;
+            // (lane, word) in 32 bits for words below 64; a word past them
+            // and a lane without a hit take keys of their own
+            const unsigned key =
+                hit && (c[i] >> 5) < 64
+                    ? (static_cast<unsigned>(f) << 6) |
+                          static_cast<unsigned>(c[i] >> 5)
+                    : (hit ? 0xC0000000u : 0x80000000u) | lane;
+            const unsigned group = __match_any_sync(kFull, key);
+            const unsigned word =
+                __reduce_or_sync(group, hit ? 1u << (c[i] & 31) : 0u);
+            if (hit && lane == __ffs(group) - 1) {
+              if (f == f_open && (c[i] >> 5) < 32) {
+                acc[warp][c[i] >> 5] |= word;
+              } else {
+                atomicOr(d.bits + word_of(f) + (c[i] >> 5), word);
+              }
+            }
+            __syncwarp();
+          }
+        },
+        [&](int f_last) {
+          if (f_last != f_open) {
+            flush();
+            f_open = kind_of(f_last) == 1 ? f_last : -1;
+          }
+        });
+    // the rows still open: warps of the block that end in one row merge
+    // their words, so a row that spans the block costs one atomicOr a word
+    if (lane == 0) open_row[warp] = f_open;
+    __syncthreads();
+    if (f_open >= 0 && (warp == 0 || open_row[warp - 1] != f_open)) {
+      unsigned word = 0u;
+      for (int w = warp; w < kWarps && open_row[w] == f_open; ++w) {
+        word |= acc[w][lane];
       }
-      __syncwarp();
-      const unsigned fr = free_bits(bits[lane], lane, deg);
-      const unsigned has = __ballot_sync(kFull, fr != 0u);
-      const int first = __ffs(has) - 1;
-      const unsigned ff = __shfl_sync(kFull, fr, first);
-      if (lane == 0) d.pick[f] = first * 32 + __ffs(ff) - 1;
-      visits += lane == 0 ? deg : 0;
-      __syncwarp();  // the bitset is cleared for the next row
+      if (word) atomicOr(d.bits + word_of(f_open) + lane, word);
     }
-    // ... large rows by whole blocks
-    for (int f = blockIdx.x; f < K; f += G) {
-      const int item = items[f / cc.G];
-      const int deg = degs[f];
-      if (item <= 0 || deg < kSmallDeg) continue;
-      const int v = vertex_of(f);
-      const int lo = __ldg(d.row_ptr + v);
-      const int words = (deg + 32) / 32;  // deg + 1 bits
-      for (int w = tid; w < words; w += kThreads) big[w] = 0u;
-      if (tid == 0) s_pick = INT_MAX;
-      __syncthreads();
-      for (int j = tid; j < deg; j += kThreads) {
-        const int c = __ldcg(d.colors + neighbor<kSlotted>(d, lo, v, j));
-        if (c >= 0 && c <= deg) atomicOr(big + (c >> 5), 1u << (c & 31));
+    __syncthreads();
+    acc[warp][lane] = 0u;
+    grid_barrier(d.barrier);
+
+    // 3. each assign lane's first free color, committed at once: a thread
+    // a lane reads its first word; a lane whose first 32 colors are all
+    // taken is searched by its warp, 32 words a step
+    for (int base = gwarp * 32; base < K; base += n_warps * 32) {
+      const int f = base + lane;
+      const bool mine = kind_of(f) == 1;
+      const int deg = mine ? S[f] - before(f) : 0;
+      const int at = mine ? word_of(f) : 0;
+      int pick = -1;
+      if (mine) {
+        const unsigned fr = free_bits(__ldcg(d.bits + at), 0, deg);
+        if (fr) pick = __ffs(fr) - 1;
       }
-      __syncthreads();
-      for (int w = tid; w < words; w += kThreads) {
-        const unsigned fr = free_bits(big[w], w, deg);
-        if (fr != 0u) {
-          atomicMin(&s_pick, w * 32 + __ffs(fr) - 1);
-          break;
+      unsigned more = __ballot_sync(kFull, mine && pick < 0);
+      while (more) {
+        const int src = __ffs(more) - 1;
+        more &= more - 1;
+        const int sdeg = __shfl_sync(kFull, deg, src);
+        const int sat = __shfl_sync(kFull, at, src);
+        const int words = sdeg / 32 + 1;
+        int found = -1;
+        for (int w0 = 1; w0 < words && found < 0; w0 += 32) {
+          const int w = w0 + lane;
+          const unsigned fr =
+              w < words ? free_bits(__ldcg(d.bits + sat + w), w, sdeg) : 0u;
+          const unsigned has = __ballot_sync(kFull, fr != 0u);
+          if (has) {
+            const int first = __ffs(has) - 1;
+            const unsigned ff = __shfl_sync(kFull, fr, first);
+            found = (w0 + first) * 32 + __ffs(ff) - 1;
+          }
         }
+        if (lane == src) pick = found;
       }
-      __syncthreads();
-      if (tid == 0) {
-        d.pick[f] = s_pick;
-        visits += deg;
-      }
-      __syncthreads();  // big and s_pick are reused by the next row
+      if (mine) d.colors[vertex_of(f)] = pick;
     }
     grid_barrier(d.barrier);
 
-    // 3. commit this block's assign vertex lanes
-    int fa, fb;
-    block_range(K, blockIdx.x, G, fa, fb);
-    for (int f = fa + tid; f < fb; f += kThreads) {
-      if (items[f / cc.G] > 0 && degs[f] >= 0) {
-        d.colors[vertex_of(f)] = __ldcg(d.pick + f);
+    // 4. detects on the post-commit colors over the same slices, a lane
+    // that re-colors marked with a 1; the round's bitset words zeroed
+    walk(
+        V, -1,
+        [&](const int(&fs)[kVisits], const int(&js)[kVisits],
+            const bool(&oks)[kVisits]) {
+          int v[kVisits];
+          int my[kVisits];
+          int u[kVisits];
+#pragma unroll
+          for (int i = 0; i < kVisits; ++i) {
+            v[i] = vertex_of(fs[i]);
+            my[i] = oks[i] ? __ldcg(d.colors + v[i]) : -1;
+            u[i] = oks[i] ? neighbor<kSlotted>(d, __ldg(d.row_ptr + v[i]),
+                                               v[i], js[i])
+                          : 0;
+          }
+#pragma unroll
+          for (int i = 0; i < kVisits; ++i) {
+            const int cu = oks[i] ? __ldcg(d.colors + u[i]) : -1;
+            if (my[i] < 0) continue;
+            visits += 1;
+            if (cu == my[i] &&
+                beats(u[i], priority(static_cast<unsigned>(u[i])), v[i],
+                      priority(static_cast<unsigned>(v[i])))) {
+              d.bad[fs[i]] = 1;
+            }
+          }
+        },
+        [](int) {});
+    const int words = WG + V / 32;
+    for (int w = (blockIdx.x * kThreads + tid) * 4; w < words;
+         w += G * kThreads * 4) {
+      if (w + 4 <= words) {
+        *reinterpret_cast<uint4*>(d.bits + w) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int i = w; i < min(w + 4, words); ++i) d.bits[i] = 0u;
       }
     }
     grid_barrier(d.barrier);
 
-    // 4. detects on the post-commit colors: small rows by warps ...  A
-    // vertex that re-colors pushes v + 1 at G = 1; at G > 1 it marks its
-    // window, and what it pushes is read after a barrier.
-    for (int f = gwarp; f < K; f += n_warps) {
-      const int item = items[f / cc.G];
-      const int deg = degs[f];
-      if (item >= 0 || deg < 0 || deg >= kSmallDeg) continue;
-      const int v = vertex_of(f);
-      const int my = __ldcg(d.colors + v);
-      const unsigned pv = priority(static_cast<unsigned>(v));
-      const int lo = __ldg(d.row_ptr + v);
-      bool clash = false;
-      if (my >= 0) {
-        for (int j = lane; j < deg; j += 32) {
-          const int u = neighbor<kSlotted>(d, lo, v, j);
-          clash |= __ldcg(d.colors + u) == my &&
-                   beats(u, priority(static_cast<unsigned>(u)), v, pv);
+    // at G > 1 each marked vertex joins its window, one pass, then a
+    // barrier before the windows are read
+    int lo, hi;
+    if (kChunks) {
+      block_range(K, blockIdx.x, G, lo, hi);
+      for (int f = lo + tid; f < hi; f += kThreads) {
+        if (kind_of(f) == -1 && __ldcg(d.bad + f)) {
+          window_add(d.win, vertex_of(f), cc, r);
         }
       }
-      const bool any = __any_sync(kFull, clash);
-      if (lane == 0) {
-        d.bad[f] = !any ? 0 : (cc.G > 1 ? 1 : v + 1);
-        if (any && cc.G > 1) window_add(d.win, v, cc, r);
-        visits += my >= 0 ? deg : 0;
-      }
+      grid_barrier(d.barrier);
     }
-    // ... large rows by whole blocks
-    for (int f = blockIdx.x; f < K; f += G) {
-      const int item = items[f / cc.G];
-      const int deg = degs[f];
-      if (item >= 0 || deg < kSmallDeg) continue;
-      const int v = vertex_of(f);
-      const int my = __ldcg(d.colors + v);
-      const unsigned pv = priority(static_cast<unsigned>(v));
-      const int lo = __ldg(d.row_ptr + v);
-      if (tid == 0) s_clash = 0;
-      __syncthreads();
-      if (my >= 0) {
-        bool clash = false;
-        for (int j = tid; j < deg; j += kThreads) {
-          const int u = neighbor<kSlotted>(d, lo, v, j);
-          clash |= __ldcg(d.colors + u) == my &&
-                   beats(u, priority(static_cast<unsigned>(u)), v, pv);
-        }
-        if (clash) s_clash = 1;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        d.bad[f] = !s_clash ? 0 : (cc.G > 1 ? 1 : v + 1);
-        if (s_clash && cc.G > 1) window_add(d.win, v, cc, r);
-        visits += my >= 0 ? deg : 0;
-      }
-      __syncthreads();  // s_clash is reused by the next row
-    }
-    grid_barrier(d.barrier);
 
     // 5. push: positions [0, k) the assigns' detects, [k, k + K) the
-    // re-assigns by vertex lane; at G > 1 this block's re-assign positions
-    // first read their windows
+    // re-assigns by vertex lane; a marked lane's push (v + 1 at G = 1, its
+    // window's chunk plus one at G > 1) replaces its mark
     const int P = k + K;
-    int lo, hi;
     block_range(P, blockIdx.x, G, lo, hi);
     int kept_local = 0;
     for (int p = lo + tid; p < hi; p += kThreads) {
@@ -357,21 +563,27 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
         continue;
       }
       const int f = p - k;
-      // bad is written for the detect vertex lanes only
-      const bool detect = items[f / cc.G] < 0 && degs[f] >= 0;
-      int value = detect ? __ldcg(d.bad + f) : 0;
-      if (value != 0 && cc.G > 1) {
+      if (kind_of(f) != -1 || !__ldcg(d.bad + f)) continue;
+      int value = vertex_of(f) + 1;
+      if (cc.G > 1) {
         const int chunk = window_emit(d.win, vertex_of(f), cc, true);
         value = chunk >= 0 ? chunk + 1 : 0;
-        d.bad[f] = value;
       }
+      d.bad[f] = value;
       kept_local += value != 0;
+    }
+    // the next wavefront's lane degrees: of the tasks already in the ring
+    // here, of the pushed ones as they are written
+    const int head_after = wrap_add(head, k);
+    const int waiting = wrap_sub(tail, head_after);
+    for (int l = gthread; l < min(waiting, W); l += n_threads) {
+      put_degrees(l, lane_load<kPacked>(__ldcg(
+                         d.buf + ring_slot(wrap_add(head_after, l), d.cap))));
     }
     const int kept = block_sum<kThreads>(kept_local, warp_sums);
     if (tid == 0) d.block_count[blockIdx.x] = kept;
     grid_barrier(d.barrier);
 
-    const int head_after = wrap_add(head, k);
     const int free_slots = d.cap - wrap_sub(tail, head_after);
     const int count = ring_push<kThreads, kPacked>(
         d.buf, d.cap, tail, free_slots, d.block_count, lo, hi, warp_sums,
@@ -381,8 +593,12 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
             return items[p] > 0;
           }
           const int f = p - k;
-          value = items[f / cc.G] < 0 && degs[f] >= 0 ? __ldcg(d.bad + f) : 0;
+          value = kind_of(f) == -1 ? __ldcg(d.bad + f) : 0;
+          if (value) d.bad[f] = 0;  // clean for the next round
           return value != 0;
+        },
+        [&](int rank, int task) {
+          if (waiting + rank < W) put_degrees(waiting + rank, task);
         });
     grid_barrier(d.barrier);
 
@@ -442,14 +658,12 @@ const void* kernel_for(int granularity, bool packed, bool traced,
                  : instance_of<false>(granularity, packed, traced);
 }
 
-// The launch plan for a wavefront of W chunks of up to G vertices and a
-// block bitset of `big_words` in a mode: dynamic shared memory and the
-// co-resident grid.  The wavefront and its vertex lanes' degrees go to
-// global scratch when they and the bitset do not fit in shared memory; a
-// bitset that does not fit alone is refused.
+// The launch plan for a wavefront of W chunks of up to G vertices in a
+// mode: dynamic shared memory and the co-resident grid.  The wavefront and
+// its vertex lanes' degree scan go to global scratch when they do not fit
+// in shared memory.
 cudaError_t plan(int W, int granularity, bool packed, bool traced,
-                 bool slotted, int big_words, size_t* dyn, bool* wave_shared,
-                 int* grid) {
+                 bool slotted, size_t* dyn, bool* wave_shared, int* grid) {
   const void* kernel = kernel_for(granularity, packed, traced, slotted);
   DeviceInfo info;
   cudaError_t err = device_info(&info);
@@ -458,32 +672,28 @@ cudaError_t plan(int W, int granularity, bool packed, bool traced,
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   const size_t optin = static_cast<size_t>(info.smem_optin);
-  const size_t bits = static_cast<size_t>(big_words) * sizeof(unsigned);
   const size_t wave =
       static_cast<size_t>(W) * (1 + granularity) * sizeof(int);
-  if (bits + attr.sharedSizeBytes > optin) return cudaErrorInvalidValue;
-  *wave_shared = wave + bits + attr.sharedSizeBytes <= optin;
-  *dyn = (*wave_shared ? wave : 0) + bits;
+  *wave_shared = wave + attr.sharedSizeBytes <= optin;
+  *dyn = *wave_shared ? wave : 0;
   return cooperative_grid(kernel, kThreads, *dyn, grid);
 }
 
 }  // namespace
 
 // The grid the launch takes for a wavefront of W chunks of up to G
-// vertices and a graph whose largest degree is max_degree, in a mode
-// (packed: the fused mode; traced: the traced mode; slotted: the slotted
-// mode), and whether the wavefront lives in shared memory (1) or in global
-// scratch of grid * W (1 + G) ints (0).  Returns the cudaError_t (0 on
-// success).
+// vertices in a mode (packed: the fused mode; traced: the traced mode;
+// slotted: the slotted mode), and whether the wavefront lives in shared
+// memory (1) or in global scratch of grid * W (1 + G) ints (0).  Returns
+// the cudaError_t (0 on success).
 extern "C" int coloring_drain_grid(int wavefront, int granularity,
-                                   int max_degree, int packed, int traced,
-                                   int slotted, int* grid,
-                                   int* wave_in_shared) {
+                                   int packed, int traced, int slotted,
+                                   int* grid, int* wave_in_shared) {
   size_t dyn = 0;
   bool shared = false;
   const cudaError_t err =
       plan(wavefront, granularity, packed != 0, traced != 0, slotted != 0,
-           (max_degree + 32) / 32, &dyn, &shared, grid);
+           &dyn, &shared, grid);
   if (err != cudaSuccess) return err;
   *wave_in_shared = shared;
   return cudaSuccess;
@@ -491,26 +701,29 @@ extern "C" int coloring_drain_grid(int wavefront, int granularity,
 
 // One cooperative launch of the whole drain on `stream`.  `grid` and
 // `wave_global` come from coloring_drain_grid; the scratch is sized by the
-// caller: pick and bad W G ints each; windows 3 (n / G + 2) zeroed words,
-// then one zeroed split count; block_count grid ints; barrier 2 zeroed
-// words; visits one zeroed word, which gets the neighbors the picks and
-// detects visited.  `threshold` is the split threshold (INT_MAX for none).
-// `packed` selects the fused mode
-// (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced
-// mode, with its [trace_capacity][13] rows and one-int cursor, both updated
-// in place; a non-null `slab_ptr` the slotted mode, where col_idx is the
-// slab array and slab_len, ovl_ptr and ovl_col the rest of the slotted
-// view.  Returns the cudaError_t of the launch (0 on success).
+// caller: bad W G ints and bits bits_cap words, both zero on entry and left
+// zero (bits_cap at least W G + (the largest degree sum of W G distinct
+// vertices) / 32, or the launch traps); lane_deg W G ints; windows 3
+// (n / G + 2) zeroed
+// words, then one zeroed split count; block_count grid ints; barrier 2
+// zeroed words; visits one zeroed word, which gets the neighbors the picks
+// and detects visited.  `threshold` is the split threshold (INT_MAX for
+// none).  `packed` selects the fused mode (buf is lane 0 of a one-lane
+// MultiQueue); a non-null `trace` the traced mode, with its
+// [trace_capacity][13] rows and one-int cursor, both updated in place; a
+// non-null `slab_ptr` the slotted mode, where col_idx is the slab array and
+// slab_len, ovl_ptr and ovl_col the rest of the slotted view.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int coloring_drain_launch(
     int* buf, int cap, int* colors, int n, const int* row_ptr,
     const int* col_idx, const int* slab_ptr, const int* slab_len,
     const int* ovl_ptr, const int* ovl_col, int* cursors, int wavefront,
-    int max_rounds,
-    int max_degree, int granularity, int width_bits, int threshold,
-    int* pick, int* bad, unsigned long long* windows, unsigned int* splits,
-    int* block_count, unsigned int* barrier, int* wave_global,
-    long long* visits, int packed, int* trace, int trace_capacity,
-    int* trace_cursor, int grid, cudaStream_t stream) {
+    int max_rounds, int granularity, int width_bits, int threshold,
+    int* bad, unsigned* bits, int bits_cap, int* lane_deg,
+    unsigned long long* windows,
+    unsigned int* splits, int* block_count, unsigned int* barrier,
+    int* wave_global, long long* visits, int packed, int* trace,
+    int trace_capacity, int* trace_cursor, int grid, cudaStream_t stream) {
   const bool traced = trace != nullptr;
   const bool slotted = slab_ptr != nullptr;
   if (granularity < 1 || granularity > 64) return cudaErrorInvalidValue;
@@ -521,12 +734,11 @@ extern "C" int coloring_drain_launch(
                   ovl_col == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  const int big_words = (max_degree + 32) / 32;
   size_t dyn = 0;
   bool shared = false;
   int most = 0;
   cudaError_t err = plan(wavefront, granularity, packed != 0, traced, slotted,
-                         big_words, &dyn, &shared, &most);
+                         &dyn, &shared, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorInvalidValue;
   if (shared != (wave_global == nullptr)) return cudaErrorInvalidValue;
@@ -545,8 +757,10 @@ extern "C" int coloring_drain_launch(
   d.codec = Codec{granularity, width_bits};
   d.win = Windows{windows, windows + nb, windows + 2 * nb, splits, row_ptr,
                   n, threshold};
-  d.pick = pick;
   d.bad = bad;
+  d.bits = bits;
+  d.bits_cap = bits_cap;
+  d.lane_deg = lane_deg;
   d.block_count = block_count;
   d.barrier = barrier;
   d.wave_global = wave_global;

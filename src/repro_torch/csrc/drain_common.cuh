@@ -236,17 +236,24 @@ __device__ __forceinline__ int lane_store(int task) {
   return kPacked ? (zigzag(task) & kPayloadMask) : task;
 }
 
+// What ring_push does after each write by default: nothing.
+struct NoWrite {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // The round's push.  Each block has written how many positions of its range
 // [lo, hi) it keeps into block_count[blockIdx.x], and a grid barrier has
 // passed since.  `item(p, value)` says whether position p is kept and sets
 // its task.  Writes the kept tasks of [lo, hi), in position order, into the
-// ring at tail + (kept positions before them), packed in the fused mode; a
-// write at or past `free_slots` is dropped.  Returns the round's kept count
-// (every block gets it).  Every thread of the block must call it.
-template <int kThreads, bool kPacked, class Item>
+// ring at tail + (kept positions before them), packed in the fused mode,
+// and calls written(rank, task) after each; a write at or past
+// `free_slots` is dropped.  Returns the round's kept count (every block gets
+// it).  Every thread of the block must call it.
+template <int kThreads, bool kPacked, class Item, class Written = NoWrite>
 __device__ int ring_push(int* buf, int cap, int tail, int free_slots,
                          const int* block_count, int lo, int hi,
-                         int* warp_sums, Item item) {
+                         int* warp_sums, Item item,
+                         Written written = Written()) {
   const int G = gridDim.x;
   const int tid = threadIdx.x;
   int base = 0;
@@ -270,6 +277,7 @@ __device__ int ring_push(int* buf, int cap, int tail, int free_slots,
         offset, block_exclusive_scan<kThreads>(keep, warp_sums, tile_total));
     if (keep && r < free_slots) {
       buf[ring_slot(wrap_add(tail, r), cap)] = lane_store<kPacked>(value);
+      written(r, value);
     }
     offset = wrap_add(offset, tile_total);
   }

@@ -1,9 +1,11 @@
 """Kernel B1 wrapper: the load-balancing search, ``csrc/lbs.cu``.
 
 Replaces the TPU kernel ``lbs_pallas`` of
-``repro/kernels/frontier_expand/kernel.py``.  The kernel binary-searches a
-shared-memory copy of the scan per work unit; see the note in the source
-for what bounds it and why.
+``repro/kernels/frontier_expand/kernel.py``.  The kernel is a merge-path
+load-balancing search: each block takes a fixed share of the merge of the
+units with the scan entries, stages only its own window of the scan and
+walks it in order, and a block wholly past the scan's total writes its
+units without a search.  See the note in the source for what bounds it.
 """
 from __future__ import annotations
 

@@ -451,3 +451,50 @@ def test_params_and_unported_options(graphs):
     deg = np.sort(tgraph.degrees().numpy())[::-1]
     assert tcol.flat_budget(tgraph, 10) == int(deg[:10].sum())
     assert tcol.flat_budget(tgraph, 10 ** 6) == tgraph.num_edges
+
+
+# ------------------------------------------------------ hubs against JAX
+def _hub_edges(name):
+    """A star whose hub 0 touches every other vertex (degree 255), and a
+    graph of four hubs (degrees 90-200) over random edges, whose hubs share
+    a wavefront; both within the size JAX's one-hot coloring can hold
+    (ROADMAP C-ref4)."""
+    rng = np.random.default_rng(4)
+    n = 256
+    if name == "star(256)":
+        return n, np.zeros(n - 1, np.int64), np.arange(1, n, dtype=np.int64)
+    src = [np.full(90 + 35 * h, h) for h in range(4)]
+    dst = [rng.choice(np.arange(4, n), size=90 + 35 * h, replace=False)
+           for h in range(4)]
+    src.append(rng.integers(4, n, size=600))
+    dst.append(rng.integers(4, n, size=600))
+    return n, np.concatenate(src), np.concatenate(dst)
+
+
+HUB_GRAPHS = ["star(256)", "four hubs"]
+
+
+@pytest.fixture(scope="module")
+def hub_graphs():
+    out = {}
+    for name in HUB_GRAPHS:
+        n, src, dst = _hub_edges(name)
+        out[name] = (jg.from_edges(n, src, dst, symmetrize=True),
+                     tg.from_edges(n, src, dst, symmetrize=True,
+                                   device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("graph", HUB_GRAPHS)
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("kernel", ["persistent", "megakernel"])
+def test_hub_graphs_match_jax_persistent(hub_graphs, graph, g, kernel):
+    """Rows far longer than the rest, as the drain kernel spreads over the
+    grid: the port's persistent cell and plain fused drain against JAX's
+    single.persistent cell, colors, counters and RunStats bit for bit."""
+    info, state = _run_both(hub_graphs, graph,
+                            f"single.{kernel}" + _suffix(g),
+                            "single.persistent" + _suffix(g))
+    assert info["dropped"] == 0 and info["rounds"] > 2
+    assert tcol.validate_coloring(hub_graphs[graph][1], state.colors)
+    assert int(state.colors[0]) >= 0

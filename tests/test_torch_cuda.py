@@ -2,12 +2,13 @@
 version at the main path's shapes and edge sizes, BFS through both kernels
 against the plain backend, the ordered scatter-add against the CPU's
 sequential sum and the PageRank and coloring drain kernels against their
-persistent, plain and CPU drains, bit for bit, every drain kernel at
-granularities 2, 3 and 8 (and BFS per_item) and in its fused, traced and
-slotted modes against the plain fused drain, streams on the card against
-the CPU, B3-pr's ordered sum on a hub graph past a block's sort, and the
-flash-attention kernel B5 (its tensor-core and CUDA-core instances)
-against ``attention_ref`` within its stated tolerance.
+persistent, plain and CPU drains, bit for bit, B3-col on hubs past a
+warp's or a block's share of a round and on two streams, every drain
+kernel at granularities 2, 3 and 8 (and BFS per_item) and in its fused,
+traced and slotted modes against the plain fused drain, streams on the
+card against the CPU, B3-pr's ordered sum on a hub graph past a block's
+sort, and the flash-attention kernel B5 (its tensor-core and CUDA-core
+instances) against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -35,8 +36,8 @@ def _require_cuda():
 
 @pytest.mark.parametrize("w,budget", LBS_CASES)
 def test_lbs_kernel_matches_plain(w, budget):
-    """Includes W = 70000, whose scan (280 KB) exceeds shared memory and
-    takes the global-memory search."""
+    """Includes W = 70000, a scan (280 KB) past shared memory, of which
+    each block stages only its own window."""
     _require_cuda()
     from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
 
@@ -46,6 +47,83 @@ def test_lbs_kernel_matches_plain(w, budget):
     o, r = lbs_cuda(scan, budget)
     ro, rr = lbs_ref(scan, budget)
     assert torch.equal(o, ro) and torch.equal(r, rr)
+
+
+def _lbs_tie_case(case):
+    """The scan (numpy int32) and budget of a case that decides the kernel's
+    ties or partition: the kernel merges in tiles of 2048 items (units plus
+    scan entries) and writes a tile wholly past the total without a
+    search."""
+    rng = np.random.default_rng(3)
+    if case.startswith("W="):
+        w, where = case[2:].split(" ")
+        deg = rng.integers(0, 9, size=int(w))
+        deg[::3] = 0
+        deg[-1] = 5
+        total = int(deg.sum())
+        return (np.cumsum(deg).astype(np.int32),
+                total + {"total-1": -1, "total": 0, "total+1": 1}[where])
+    if case == "zero runs across tiles":
+        deg = np.zeros(70000, dtype=np.int64)
+        deg[::2500] = 3
+        deg[4100] = 20000
+        return np.cumsum(deg).astype(np.int32), int(deg.sum()) + 9000
+    if case == "entries on each tile's last item":
+        # entry j sits at merge position j + scan[j] = 2048 j + 2047
+        return (np.cumsum(np.full(300, 2047)).astype(np.int32),
+                300 * 2047 + 5000)
+    if case == "entries on each tile's first item":
+        # entry j at 2048 (j + 1), the first item of tile j + 1
+        return (np.cumsum(np.r_[2048, np.full(299, 2047)]).astype(np.int32),
+                2048 + 299 * 2047 + 100)
+    if case == "all-zero scan":
+        return np.zeros(300, dtype=np.int32), 1000
+    if case == "budget 2^24":
+        deg = rng.integers(0, 60, size=4096)
+        return np.cumsum(deg).astype(np.int32), 2 ** 24
+    if case == "budget below the total, W=2^16":
+        deg = rng.integers(0, 40, size=2 ** 16)
+        return np.cumsum(deg).astype(np.int32), int(deg.sum()) // 3
+    raise ValueError(case)
+
+
+LBS_TIES = ([f"W={w} {where}" for w in (1, 7, 4096, 2 ** 16)
+             for where in ("total-1", "total", "total+1")]
+            + ["zero runs across tiles", "entries on each tile's last item",
+               "entries on each tile's first item", "all-zero scan",
+               "budget 2^24", "budget below the total, W=2^16"])
+
+
+@pytest.mark.parametrize("case", LBS_TIES)
+def test_lbs_kernel_matches_plain_on_ties_and_tile_edges(case):
+    """B1 bit for bit against ``lbs_ref`` on every unit: budgets at, one
+    below and one above the scan's total; runs of zero-degree chunks longer
+    than a tile; scan entries on a tile's first and last item; an all-zero
+    scan; a budget of 2^24 (mostly tiles past the total); one launch a
+    call."""
+    _require_cuda()
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+
+    scan, budget = _lbs_tie_case(case)
+    scan = torch.from_numpy(scan).cuda()
+    before = lbs_cuda.launches
+    o, r = lbs_cuda(scan, budget)
+    assert lbs_cuda.launches - before == 1
+    ro, rr = lbs_ref(scan, budget)
+    assert torch.equal(o, ro) and torch.equal(r, rr)
+
+
+def test_lbs_is_one_device_op_a_call():
+    _require_cuda()
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+
+    deg = np.random.default_rng(5).integers(0, 200, size=4096)
+    scan = torch.from_numpy(np.cumsum(deg).astype(np.int32)).cuda()
+    ops = _device_ops(lambda: lbs_cuda(scan, 495616), 10)
+    # the kernel and nothing else; the profiler may drop records, never
+    # add them
+    assert ops and all("lbs" in name for name in ops), ops
+    assert sum(ops.values()) <= 10, ops
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1023, 1024, 1025, 499712,
@@ -1010,6 +1088,116 @@ def test_pagerank_drain_ordered_sum_on_a_hub_matches_persistent_and_plain(
     assert plain.kernel is None
     _assert_same(first, megakernel_drive(plain.step, plain.cond,
                                          plain.carry))
+
+
+# B3-col's load-balanced visits on hubs: (graph, mode, G)
+COLOR_HUB_CASES = ([("star", "single", g) for g in (1, 2, 4, 64)]
+                   + [("star", "fused", 1), ("star", "traced", 4),
+                      ("star", "slotted", 1), ("hubs", "single", 1),
+                      ("hubs", "single", 4), ("hubs", "fused", 2),
+                      ("hubs", "traced", 1), ("hubs", "slotted", 4)])
+
+
+def _coloring_hub_graph(kind, device):
+    """``star``: vertex 0 adjacent to all 2^17 others.  ``hubs``: 32,768
+    vertices, of which 0..7 are adjacent to 4,000 .. 25,000 random others
+    each (all eight in the first wavefront), plus 30,000 random edges;
+    symmetric."""
+    from repro_torch.graph.csr import from_edges
+
+    if kind == "star":
+        n = 2 ** 17 + 1
+        return from_edges(n, np.zeros(n - 1, np.int64),
+                          np.arange(1, n, dtype=np.int64), symmetrize=True,
+                          device=device)
+    rng = np.random.default_rng(12)
+    n = 32768
+    src = [np.full(4000 + 3000 * h, h) for h in range(8)]
+    dst = [rng.integers(8, n, size=4000 + 3000 * h) for h in range(8)]
+    src.append(rng.integers(8, n, size=30000))
+    dst.append(rng.integers(8, n, size=30000))
+    return from_edges(n, np.concatenate(src), np.concatenate(dst),
+                      symmetrize=True, device=device)
+
+
+def _coloring_scratch_is_zero(stream=None):
+    """Whether B3-col's marks and bitsets of ``stream`` (the current one by
+    default) are all zero."""
+    from repro_torch.kernels.drain_loop.coloring_drain import _SCRATCH
+
+    stream = stream or torch.cuda.current_stream()
+    bad, bits = _SCRATCH[(torch.cuda.current_device(), stream.cuda_stream)]
+    return not bad.any() and not bits.any()
+
+
+def _coloring_hub_setup(graph, mode, g, kernel, **more):
+    from repro_torch.obs import Trace
+
+    topology = "fused" if mode == "fused" else "single"
+    suffix = "" if g == 1 else f".g{g}"
+    return _algo_setup(graph, "coloring", f"{topology}.{kernel}{suffix}",
+                       trace=Trace(capacity=64) if mode == "traced" else None,
+                       num_workers=1024, fetch_size=4, **more)
+
+
+@pytest.mark.parametrize("graph,mode,g", COLOR_HUB_CASES)
+def test_coloring_drain_on_hubs_matches_persistent_and_plain(graph, mode, g):
+    """B3-col where a row is far longer than a warp's or a block's share of
+    a round's visits (a hub of degree 2^17; eight hubs in one wavefront), in
+    each mode, at G = 1, 2, 4 and 64 (whose wavefront lives in global
+    scratch): one launch, the whole drain bitwise equal to the persistent
+    drain on the card (B1, B2) and to the plain fused drain on the CPU,
+    ring rows in the traced mode, the final queue included; the marks and
+    bitsets back at zero after it."""
+    _require_cuda()
+    from repro_torch.core import megakernel_drive, persistent_drive
+    from repro_torch.graph import SlottedCSR
+
+    g_cuda = _coloring_hub_graph(graph, "cuda")
+    if mode == "slotted":
+        g_cuda = SlottedCSR.from_csr(g_cuda).view()
+    mega = _coloring_hub_setup(g_cuda, mode, g, "megakernel")
+    before = _launches()
+    got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                           kernel=mega.kernel)
+    torch.cuda.synchronize()
+    assert [now - was for now, was in zip(_launches(), before)] == \
+        [0, 0, 1, 0, 0, 0]
+    assert int(mega.dropped(got[0])) == 0 and int(got[2]) > 2
+    assert _coloring_scratch_is_zero()
+    persistent = _coloring_hub_setup(g_cuda, mode, g, "persistent")
+    _assert_same(got, persistent_drive(persistent.step, persistent.cond,
+                                       persistent.carry))
+    plain = _coloring_hub_setup(g_cuda.to("cpu"), mode, g, "megakernel")
+    assert plain.kernel is None
+    _assert_same(got, megakernel_drive(plain.step, plain.cond, plain.carry))
+
+
+def test_coloring_drains_on_two_streams_leave_their_scratch_zero():
+    """Two drains issued on two streams with no wait between them, each
+    with its own marks and bitsets, equal to the drain on the default
+    stream; every stream's scratch zero after."""
+    _require_cuda()
+    from repro_torch.core import megakernel_drive
+
+    g_cuda = _coloring_hub_graph("hubs", "cuda")
+    want = _coloring_hub_setup(g_cuda, "single", 1, "megakernel")
+    want = megakernel_drive(want.step, want.cond, want.carry,
+                            kernel=want.kernel)
+    setups = [_coloring_hub_setup(g_cuda, "single", 1, "megakernel")
+              for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for setup, stream in zip(setups, streams):
+        with torch.cuda.stream(stream):
+            got.append(megakernel_drive(setup.step, setup.cond, setup.carry,
+                                        kernel=setup.kernel))
+    torch.cuda.synchronize()
+    for carry in got:
+        _assert_same(carry, want)
+    assert all(_coloring_scratch_is_zero(s) for s in streams)
+    assert _coloring_scratch_is_zero()
 
 
 # ------------------------------------------------ B5, flash attention

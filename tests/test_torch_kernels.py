@@ -70,6 +70,60 @@ def test_searchsorted_right_matches_jax(w, budget):
     _eq(got, j_searchsorted_right(jnp.asarray(scan), jnp.asarray(k)))
 
 
+def _tie_scan(case):
+    """A scan and budget of one of the cases that decide B1's ties: a
+    zero-degree chunk owns no unit, and a scan entry equal to k comes
+    before unit k.  The CUDA kernel merges in tiles of 2048 items (units
+    plus scan entries); the runs and edges below are placed against those
+    tiles, and tests/test_torch_cuda.py holds the kernel on the same
+    cases."""
+    rng = np.random.default_rng(7)
+    if case.startswith("W="):
+        w, where = case[2:].split(" ")
+        deg = rng.integers(0, 9, size=int(w))
+        deg[::3] = 0
+        deg[-1] = 5
+        total = int(deg.sum())
+        return _scan(deg), total + {"total-1": -1, "total": 0,
+                                    "total+1": 1}[where]
+    if case == "zero runs across tiles":
+        deg = np.zeros(7000, dtype=np.int64)
+        deg[::2500] = 3
+        deg[4100] = 2000
+        return _scan(deg), int(deg.sum()) + 3000
+    if case == "entries on each tile's last item":
+        # entry j sits at merge position j + scan[j] = 2048 j + 2047
+        return _scan(np.full(9, 2047)), 9 * 2047 + 2500
+    if case == "entries on each tile's first item":
+        # entry j at 2048 (j + 1), the first item of tile j + 1
+        return _scan(np.r_[2048, np.full(8, 2047)]), 2048 + 8 * 2047 + 100
+    if case == "all-zero scan":
+        return _scan(np.zeros(300, dtype=np.int64)), 1000
+    raise ValueError(case)
+
+
+LBS_TIES = ([f"W={w} {where}" for w in (1, 7, 4096)
+             for where in ("total-1", "total", "total+1")]
+            + ["zero runs across tiles", "entries on each tile's last item",
+               "entries on each tile's first item", "all-zero scan"])
+
+
+@pytest.mark.parametrize("case", LBS_TIES)
+def test_lbs_plain_matches_jax_and_pallas_on_ties(case):
+    """``lbs_ref`` against JAX's ``lbs_ref`` on every unit and against the
+    TPU kernel in interpret mode (owner on the first ``total`` units, as
+    above; rank on every unit) on the scans that decide the ties."""
+    scan, budget = _tie_scan(case)
+    o, r = lbs_ref(torch.from_numpy(scan), budget)
+    jo, jr = j_lbs_ref(jnp.asarray(scan), budget)
+    _eq(o, jo)
+    _eq(r, jr)
+    po, pr = lbs_pallas(jnp.asarray(scan), budget, interpret=True)
+    total = min(int(scan[-1]), budget)
+    _eq(o[:total], np.asarray(po)[:total])
+    _eq(r, pr)
+
+
 def test_lbs_zero_degrees_and_budget_past_total():
     scan = _scan(np.array([0, 0, 5, 0, 3, 0]))
     o, r = lbs(torch.from_numpy(scan), 64)

@@ -121,7 +121,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     setup = drain_setup(build_program("coloring", g, cfg), g, cfg)
     with pytest.raises(ValueError, match="CUDA device"):
         coloring_drain_cuda(setup.carry, g.row_ptr, g.col_idx, wavefront=2,
-                            max_degree=4, max_rounds=10)
+                            degree_budget=8, max_rounds=10)
 
 
 def test_policy_matrix_parses_like_jax():

@@ -1,20 +1,23 @@
-"""Time the g1 megakernel drains of two checkouts of the port on one card.
+"""Time the megakernel drains of checkouts of the port on one card.
 
     python3 tools/drain_ab.py OLD_ROOT NEW_ROOT            # rmat(21)
+    python3 tools/drain_ab.py --drains coloring,coloring.g4 A B C
     python3 tools/drain_ab.py --scale 14 --reps 2 . .      # a quick rehearsal
 
-A checkout is a directory that holds ``src/repro_torch``.  The two run in
-turns, OLD NEW NEW OLD, each turn a process of its own that imports the
-checkout's package, builds its drain kernels from its own sources (ptxas's
-register and spill lines are printed), makes rmat(scale, 16, seed 1) on the
-card, and times each drain under ``single.megakernel`` at granularity 1 with
-W = 4096 (1024 workers x 4): one warm-up drain, then ``--reps`` drains, each
-under torch.profiler; a drain's time is its kernel's device time.  BFS runs
-from the highest-degree vertex, coloring whole, PageRank (damping 0.85, eps
-1e-6, check_size 64) cut at ``--pagerank-rounds`` rounds.  Only the public
-entry points (``build_program``, ``execute``) are called, so both trees take
-the same calls.  Each turn prints one JSON line; the last lines are the card
-and the median per tree and drain.  Needs one CUDA card.
+A checkout is a directory that holds ``src/repro_torch``.  The trees run in
+turns, in the order given and then reversed (OLD NEW NEW OLD for two), each
+turn a process of its own that imports the checkout's package, builds its
+drain kernels from its own sources (ptxas's register and spill lines are
+printed), makes rmat(scale, 16, seed 1) on the card, and times each drain
+under ``single.megakernel`` with W = 4096 (1024 workers x 4): one warm-up
+drain, then ``--reps`` drains, each under torch.profiler; a drain's time is
+its kernel's device time.  BFS runs from the highest-degree vertex at
+granularity 1, coloring whole at granularity 1 and 4 (``coloring.g4``),
+PageRank (damping 0.85, eps 1e-6, check_size 64) at granularity 1 cut at
+``--pagerank-rounds`` rounds; ``--drains`` takes a part.  Only the public
+entry points (``build_program``, ``execute``) are called, so every tree
+takes the same calls.  Each turn prints one JSON line; the last lines are
+the card and the median per tree and drain.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-DRAINS = ("bfs", "pagerank", "coloring")
+DRAINS = ("bfs", "pagerank", "coloring", "coloring.g4")
 
 
-def turn(root: Path, scale: int, reps: int, pagerank_rounds: int) -> dict:
-    """One tree's drains, in this process."""
+def turn(root: Path, scale: int, reps: int, pagerank_rounds: int,
+         drains: tuple = DRAINS) -> dict:
+    """One tree's ``drains``, in this process."""
     sys.path.insert(0, str(root / "src"))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -42,7 +46,8 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("drain_ab needs a CUDA card")
-    reports = build.build([f"{algo}_drain" for algo in DRAINS])
+    reports = build.build([f"{algo}_drain"
+                           for algo in ("bfs", "pagerank", "coloring")])
     registers = {name: [line.strip() for line in text.splitlines()
                         if "Used" in line or "spill" in line]
                  for name, text in reports.items()}
@@ -51,17 +56,20 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int) -> dict:
     params = {"bfs": {"source": source}, "coloring": None,
               "pagerank": {"damping": 0.85, "eps": 1e-6, "check_size": 64}}
     out = {"root": str(root), "registers": registers, "ms": {}, "rounds": {}}
-    for algo in DRAINS:
+    for drain in drains:
+        algo, _, granularity = drain.partition(".")
         cut = {"max_rounds": pagerank_rounds} if algo == "pagerank" else {}
         cfg = config_for(SchedulerConfig(num_workers=1024, fetch_size=4,
                                          **cut),
-                         parse_policy("single.megakernel"))
+                         parse_policy("single.megakernel"
+                                      + (f".{granularity}" if granularity
+                                         else "")))
 
         def run():
             return execute(build_program(algo, graph, cfg,
                                          params=params[algo]), graph, cfg)
 
-        out["rounds"][algo] = run().info["rounds"]
+        out["rounds"][drain] = run().info["rounds"]
         times = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -74,7 +82,7 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int) -> dict:
             if not ms > 0:
                 raise AssertionError(f"the profiler saw no {algo}_drain")
             times.append(ms)
-        out["ms"][algo] = times
+        out["ms"][drain] = times
     return out
 
 
@@ -110,28 +118,33 @@ def alternate(script: str, trees: list, flags: list) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path)
-    ap.add_argument("new", type=Path)
+    ap.add_argument("trees", type=Path, nargs="+")
     ap.add_argument("--scale", type=int, default=21)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--pagerank-rounds", type=int, default=512)
+    ap.add_argument("--drains", default=",".join(DRAINS),
+                    help="a comma list of " + ", ".join(DRAINS))
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    drains = tuple(args.drains.split(","))
+    if not set(drains) <= set(DRAINS):
+        ap.error(f"--drains takes {', '.join(DRAINS)}")
     if args.turn is not None:
         print(json.dumps(turn(args.turn.resolve(), args.scale, args.reps,
-                              args.pagerank_rounds)), flush=True)
+                              args.pagerank_rounds, drains)), flush=True)
         return 0
-    readings = alternate(__file__, [args.old.resolve(), args.new.resolve()],
+    readings = alternate(__file__, [tree.resolve() for tree in args.trees],
                          ["--scale", str(args.scale), "--reps",
                           str(args.reps), "--pagerank-rounds",
-                          str(args.pagerank_rounds)])
+                          str(args.pagerank_rounds), "--drains",
+                          args.drains])
     name = card()
     print(name)
     print(json.dumps({"median_ms": {
-        label: {algo: statistics.median(
-            ms for r in runs for ms in r["ms"][algo]) for algo in DRAINS}
-        for label, runs in zip(("old", "new"), readings)}, "card": name,
-        "scale": args.scale}))
+        f"{at} {tree}": {drain: statistics.median(
+            ms for r in runs for ms in r["ms"][drain]) for drain in drains}
+        for at, (tree, runs) in enumerate(zip(args.trees, readings))},
+        "card": name, "scale": args.scale}))
     return 0
 
 

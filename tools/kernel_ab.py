@@ -1,21 +1,33 @@
-"""Time the ordered scatter-add and B2 of checkouts of the port on one card.
+"""Time B1, the ordered scatter-add and B2 of checkouts of the port on one
+card.
 
     python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT            # rmat(21)
     python3 tools/kernel_ab.py --cases compact A B C        # B2 alone
+    python3 tools/kernel_ab.py --cases lbs OLD NEW          # B1 alone
     python3 tools/kernel_ab.py --scale 14 --reps 2 . .      # a quick rehearsal
 
 A checkout is a directory that holds ``src/repro_torch``.  The trees run in
 turns, in the order given and then reversed (OLD NEW NEW OLD for two;
 ``tools/drain_ab.py``'s runner), each turn a process of its own that
-imports the checkout's package, builds ``ordered_scatter_add`` and
-``compact`` from its own sources (ptxas's register and spill lines are
-printed), makes rmat(scale, 16, seed 1) on the card, and times each case
-of ``--cases`` (``scatter``, ``compact``, ``drain``; all three unless
-given) by torch.profiler's device time (each device op's total over
-``--reps`` calls, so its split is kept), between CUDA events, and by the
-host's microseconds to issue a call (``--reps`` calls back to back, timed
-before the closing synchronize):
+imports the checkout's package, builds the kernels its cases need from its
+own sources (ptxas's register and spill lines are printed), makes
+rmat(scale, 16, seed 1) on the card, and times each case of ``--cases``
+(``lbs``, ``scatter``, ``compact``, ``drain``; all four unless given) by
+torch.profiler's device time (each device op's total over ``--reps``
+calls, so its split is kept), between CUDA events, and by the host's
+microseconds to issue a call (``--reps`` calls back to back, timed before
+the closing synchronize):
 
+* ``lbs_main``: B1 at the persistent BFS and PageRank rounds' shape, a
+  scan of the degrees of 4,096 random vertices and the default work
+  budget;
+* ``lbs_coloring_g1``, ``lbs_coloring_g4``: B1 at the persistent coloring
+  round's flat budget (the sum of the W G largest degrees,
+  ``algorithms/coloring.flat_budget``) over the scan of its first round's
+  assign gather, the degrees of vertices 0 .. W G - 1, at G = 1 and 4;
+* ``searchsorted_*``: ``torch.searchsorted(scan, arange(budget),
+  right=True, out_int32=True)`` on the same three inputs, the one library
+  call that gives B1's owners (its rank needs one more gather);
 * ``scatter_f32``: the ordered scatter-add at a PageRank round's shape, as
   ``chip_smoke.py`` [3] makes it (``budget`` updates, the edges of
   consecutive rows, into n slots; the last tenth idle lanes adding +0.0 at
@@ -34,7 +46,8 @@ before the closing synchronize):
   drain's milliseconds a round, its setup left out.
 
 Every result is held bit for bit against the sequential sum (numpy's
-``add.at`` in float32, ``bincount`` in float64) and ``compact_ref``.  Each
+``add.at`` in float32, ``bincount`` in float64), ``compact_ref`` and
+``lbs_ref``.  Each
 turn prints one JSON line; the last lines are the card and the median per
 tree and case.  Needs one CUDA card.
 """
@@ -52,7 +65,7 @@ import numpy as np
 
 from drain_ab import alternate, card
 
-CASES = ("scatter", "compact", "drain")
+CASES = ("lbs", "scatter", "compact", "drain")
 SEGMENT_LENGTHS = (1, 8, 64, 512, 2048, 16384)
 
 
@@ -155,7 +168,8 @@ def turn(root: Path, scale: int, reps: int, rounds: int,
         raise SystemExit("kernel_ab needs a CUDA card")
     reports = build.build(
         ["compact"] + (["ordered_scatter_add"]
-                       if {"scatter", "drain"} & set(cases) else []))
+                       if {"scatter", "drain"} & set(cases) else [])
+        + (["lbs"] if "lbs" in cases else []))
     registers = {name: [line.strip() for line in text.splitlines()
                         if "Used" in line or "spill" in line]
                  for name, text in reports.items()}
@@ -171,6 +185,34 @@ def turn(root: Path, scale: int, reps: int, rounds: int,
            "shapes": {"n": n, "m": m, "k": budget, "n_push": n_push}}
 
     timed = {}
+    if "lbs" in cases:
+        from repro_torch.algorithms.coloring import flat_budget
+        from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+        from repro_torch.kernels.frontier_expand.ref import lbs_ref
+
+        deg = graph.degrees()
+        # a generator of its own, so that the other cases' inputs do not
+        # depend on whether this one runs
+        picks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, n, size=cfg.wavefront),
+                                device="cuda")
+        shapes = {"main": (deg[picks], budget)}
+        for g in (1, 4):
+            lanes = cfg.wavefront * g
+            shapes[f"coloring_g{g}"] = (deg[:lanes],
+                                        flat_budget(graph, lanes))
+        for label, (lane_deg, b) in shapes.items():
+            scan = torch.cumsum(lane_deg, 0, dtype=torch.int32)
+            units = torch.arange(b, dtype=torch.int32, device="cuda")
+            want = lbs_ref(scan, b)
+            timed[f"lbs_{label}"] = (
+                lambda scan=scan, b=b: lbs_cuda(scan, b), want)
+            timed[f"searchsorted_{label}"] = (
+                lambda scan=scan, units=units: torch.searchsorted(
+                    scan, units, right=True, out_int32=True), want[0])
+            out["shapes"][f"lbs_{label}"] = {
+                "scan": int(scan.shape[0]), "total": int(scan[-1]),
+                "budget": b}
     if "scatter" in cases:
         start = int(rng.integers(0, max(m - budget, 1)))
         index = graph.col_idx[start:start + budget].clone()
@@ -220,9 +262,13 @@ def turn(root: Path, scale: int, reps: int, rounds: int,
                             compact_ref(items, mask))
     for name, (fn, want) in timed.items():
         got = fn()
-        same = (torch.equal(got[0].cpu(), want[0].cpu())
-                and int(got[1]) == int(want[1])) if name == "compact" \
-            else torch.equal(got.cpu(), want)
+        if name == "compact":
+            same = (torch.equal(got[0].cpu(), want[0].cpu())
+                    and int(got[1]) == int(want[1]))
+        elif name.startswith("lbs"):
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            same = torch.equal(got.cpu(), want.cpu())
         if not same:
             raise AssertionError(f"{name} differs from its oracle")
         case_reps = max(2, reps // 10) if name == "scatter_f64" else reps
