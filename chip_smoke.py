@@ -3202,8 +3202,8 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = build.build()
-    log(f"[2] built {', '.join(build.SOURCES)} in "
+    reports = build.build(build.PATH_SOURCES)
+    log(f"[2] built {', '.join(build.PATH_SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         log(f"  ptxas report for csrc/{name}.cu:")
@@ -3586,22 +3586,23 @@ def main() -> int:
         "shape": f"scan int32[{col_scan.shape[0]}] of vertices 0 .. 4095 "
                  f"(the first round's assign gather), flat budget "
                  f"{col_budget}"}
-    # B4's staging (csrc/csr_stream.cuh) runs inside the B3 launch on the
-    # megakernel path; its standalone wrapper is not launched there
-    kernels[-1]["launches"] = (mega["counts"]["bfs_drain"]
-                               if mega["units"] > 0 else 0)
-    kernels[-1]["launched_in"] = (f"bfs_drain: {mega['units']} units "
-                                  f"staged through csr_stream.cuh")
-    kernels[-1]["wrapper_launches"] = mega["counts"]["csr_stream"]
+    # B4's staging (csrc/csr_stream.cuh) runs inside the B3-pr launch on the
+    # megakernel path (B3-BFS reads each unit's word itself); its
+    # standalone wrapper is not launched there
+    pr_counts = pr["counts_megakernel"]
+    kernels[-1]["launches"] = (pr_counts["pagerank_drain"]
+                               if pr["units_expanded"] > 0 else 0)
+    kernels[-1]["launched_in"] = (f"pagerank_drain: {pr['units_expanded']} "
+                                  f"units staged through csr_stream.cuh")
+    kernels[-1]["wrapper_launches"] = pr_counts["csr_stream"]
     (kd, pd, ld), timed_by, (ke, pe, le) = times["csr_stream.slotted"]
     kernels.append({
         "name": "csr_stream.slotted", "route": "cuda",
         "source": "src/repro_torch/csrc/csr_stream.cu",
         "replaces": "src/repro/kernels/drain_loop/csr_stream.py:147 (the "
                     "overlay arm over stream_row_slices, :72)",
-        "launches": stream["bfs"]["cells"]["single.megakernel"]["counts"][
-            "bfs_drain"],
-        "launched_in": "bfs_drain.slotted on the streaming path: each "
+        "launches": stream["pagerank"]["counts"]["pagerank_drain"],
+        "launched_in": "pagerank_drain.slotted on the streaming path: each "
                        "unit's slab word staged through csr_stream.cuh",
         "wrapper_launches": 0,
         "bit_equal": slab_err == 0, "max_abs_err": slab_err,

@@ -120,7 +120,7 @@ struct Drain {
   int* lane_deg;   // [W G] the degree of each vertex lane of the next
                    // round's wavefront (0 for none)
   int* block_count;       // [gridDim.x] push count of each block
-  unsigned int* barrier;  // [2] arrivals, generation; zero at launch
+  unsigned int* barrier;  // [1] the grid barrier's arrivals; zero at launch
   int* wave_global;  // [gridDim.x][W (1 + G)] when the wavefront and its
                      // degree scan do not fit in shared memory, else null
   long long* visits;  // out: neighbors visited by the picks and detects
@@ -162,38 +162,6 @@ __device__ __forceinline__ int neighbor(const Drain& d, int lo, int v, int j) {
   } else {
     return __ldg(d.col_idx + lo + j);
   }
-}
-
-// In place, the int32 inclusive scan of s[0 : n] by the block.  Each warp
-// scans a contiguous segment, 32 words a step with neighbouring lanes on
-// neighbouring words (no bank conflicts), and adds the totals of the
-// segments before it in a second pass.  Every thread of the block must call
-// it; it ends with the block synchronized.
-__device__ void scan_lanes(int* s, int n, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int per = ((n + kWarps - 1) / kWarps + 31) & ~31;
-  const int lo = min(warp * per, n);
-  const int hi = min(lo + per, n);
-  unsigned carry = 0u;
-  for (int b = lo; b < hi; b += 32) {
-    const int i = b + lane;
-    unsigned x = i < hi ? static_cast<unsigned>(s[i]) : 0u;
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, x, off);
-      if (lane >= off) x += y;
-    }
-    if (i < hi) s[i] = static_cast<int>(carry + x);
-    carry += __shfl_sync(kFull, x, 31);
-  }
-  if (lane == 0) warp_sums[warp] = static_cast<int>(carry);
-  __syncthreads();
-  unsigned before = 0u;
-  for (int w = 0; w < warp; ++w) before += static_cast<unsigned>(warp_sums[w]);
-  for (int i = lo + lane; i < hi && before; i += 32) {
-    s[i] = static_cast<int>(static_cast<unsigned>(s[i]) + before);
-  }
-  __syncthreads();
 }
 
 // The first j >= f with s[j] > q, where every j < f has s[j] <= q and
@@ -377,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 2) coloring_drain(Drain d) {
       }
     }
     __syncthreads();
-    scan_lanes(S, WG, warp_sums);
+    scan_lanes<kThreads>(S, WG, warp_sums);
     const int n_assign = block_sum<kThreads>(assign_local, warp_sums);
     const int V = S[WG - 1];
     // distinct vertices keep the bitsets inside the degree budget
@@ -705,8 +673,8 @@ extern "C" int coloring_drain_grid(int wavefront, int granularity,
 // zero (bits_cap at least W G + (the largest degree sum of W G distinct
 // vertices) / 32, or the launch traps); lane_deg W G ints; windows 3
 // (n / G + 2) zeroed
-// words, then one zeroed split count; block_count grid ints; barrier 2
-// zeroed words; visits one zeroed word, which gets the neighbors the picks
+// words, then one zeroed split count; block_count grid ints; barrier one
+// zeroed word; visits one zeroed word, which gets the neighbors the picks
 // and detects visited.  `threshold` is the split threshold (INT_MAX for
 // none).  `packed` selects the fused mode (buf is lane 0 of a one-lane
 // MultiQueue); a non-null `trace` the traced mode, with its

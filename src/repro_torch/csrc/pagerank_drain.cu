@@ -160,7 +160,7 @@ struct Drain {
                     // pushes; -1 for none
   int* block_count;       // [gridDim.x] push count of each block
   float* block_max;       // [gridDim.x] residue max of each block's slice
-  unsigned int* barrier;  // [2] arrivals, generation; zero at launch
+  unsigned int* barrier;  // [1] the grid barrier's arrivals; zero at launch
   int* wave_global;  // [gridDim.x][2 W] when the wavefront does not fit in
                      // shared memory, else null
   long long* units;  // out: work units expanded through the stream
@@ -773,7 +773,7 @@ extern "C" int pagerank_drain_grid(int wavefront, int granularity, int packed,
 // seg_count and seg_start n zeroed ints each; seg_cursor one int;
 // long_segs budget ints and long_count one int; scan_keep n_check ints;
 // trunc_round n zeroed ints; windows 3 (n / G + 2) zeroed words, then one
-// zeroed split count; block_count grid ints; block_max grid floats; barrier 2 zeroed words; units one word, which gets
+// zeroed split count; block_count grid ints; block_max grid floats; barrier one zeroed word; units one word, which gets
 // the number of work units the drain expanded.  `threshold` is the rescan's
 // split threshold (INT_MAX for none).  `packed` selects the fused mode
 // (buf is lane 0 of a one-lane MultiQueue); a non-null `trace` the traced

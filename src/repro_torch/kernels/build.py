@@ -21,8 +21,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lbs", "compact", "csr_stream", "bfs_drain", "flash_attention",
-           "ordered_scatter_add", "pagerank_drain", "coloring_drain")
+#: the sources of the kernels the port's paths launch
+PATH_SOURCES = ("lbs", "compact", "csr_stream", "bfs_drain", "flash_attention",
+                "ordered_scatter_add", "pagerank_drain", "coloring_drain")
+#: every source: the paths' and grid_barrier, which only the tools and the
+#: tests launch
+SOURCES = PATH_SOURCES + ("grid_barrier",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -37,9 +37,11 @@ def _lib():
                                    ctypes.POINTER(i)]
     lib.bfs_drain_grid.restype = i
     lib.bfs_drain_launch.argtypes = ([p, i, p, i, p, p, i] + [p] * 5
-                                     + [i, i, i, i, i, i, i] + [p] * 9
+                                     + [i] * 7 + [p] * 9 + [i] + [p] * 3
                                      + [i, p, i, p, i, p])
     lib.bfs_drain_launch.restype = i
+    lib.bfs_drain_tile_positions.argtypes = []
+    lib.bfs_drain_tile_positions.restype = i
     return lib
 
 
@@ -118,15 +120,19 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
     buf = lane_buf.clone()
     dist = state.dist.clone()
     # scratch: the units' nbr (merge path), the dedup and least-cand words
-    # (all ones), the windows, then the split count, the block counts and
-    # the two barrier words (zeroed), then the wavefront copies when they do
-    # not fit in shared memory
+    # (all ones), the windows, the next wavefront's lane data, the tiles'
+    # status words, then the barrier's word and the split count (zeroed),
+    # then the wavefront copies when they do not fit in shared memory
     unit_nbr = torch.empty(max(stored, 1), dtype=_I32, device=device)
     words = torch.full((2 * n,), -1, dtype=torch.int64, device=device)
     windows = window_words(n, granularity, device)
-    small = torch.zeros(grid + 3, dtype=_I32, device=device)
+    lanes = torch.empty(3 * wavefront, dtype=_I32, device=device)
+    tiles_cap = max(grid, -(-(units_bound + wavefront)
+                            // _lib().bfs_drain_tile_positions()))
+    status = torch.zeros(tiles_cap + 1, dtype=torch.int64, device=device)
+    small = status[tiles_cap:].view(_I32)
     wave = (None if wave_in_shared else
-            torch.empty(grid * 2 * wavefront, dtype=_I32, device=device))
+            torch.empty(grid * 4 * wavefront, dtype=_I32, device=device))
     units_expanded = torch.zeros((), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = _lib().bfs_drain_launch(
@@ -135,9 +141,10 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
             budget,
             stored, max_rounds, *codec, unit_nbr.data_ptr(),
             words.data_ptr(), words[n:].data_ptr(), windows.data_ptr(),
-            small[grid + 2:].data_ptr(), small.data_ptr(),
-            small[grid:grid + 2].data_ptr(),
-            None if wave is None else wave.data_ptr(),
+            small[1:].data_ptr(), lanes.data_ptr(),
+            lanes[wavefront:].data_ptr(), lanes[2 * wavefront:].data_ptr(),
+            status.data_ptr(), tiles_cap,
+            small.data_ptr(), None if wave is None else wave.data_ptr(),
             units_expanded.data_ptr(), int(packed), *ring_args(ring), grid,
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "bfs_drain")
@@ -148,6 +155,6 @@ def bfs_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor, *,
 
 #: launches of the kernel since the count was last set to 0
 bfs_drain_cuda.launches = 0
-#: 0-dim int64 device tensor: the work units the last launch expanded
-#: through the row-slice stream (csrc/csr_stream.cuh), summed over rounds
+#: 0-dim int64 device tensor: the work units the last launch expanded,
+#: summed over rounds
 bfs_drain_cuda.units_expanded = None

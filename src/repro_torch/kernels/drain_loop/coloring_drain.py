@@ -128,12 +128,12 @@ def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     buf = lane_buf.clone()
     colors = state.colors.clone()
     # scratch: the next wavefront's lane degrees, the windows, then the
-    # block counts, the two barrier words and the split count (zeroed), then
+    # block counts, the barrier's word and the split count (zeroed), then
     # the wavefront copies when they do not fit in shared memory; the marks
     # and bitsets are the stream's
     lane_deg = torch.empty(flat, dtype=_I32, device=device)
     windows = window_words(n, granularity, device)
-    small = torch.zeros(grid + 3, dtype=_I32, device=device)
+    small = torch.zeros(grid + 2, dtype=_I32, device=device)
     wave = (None if wave_in_shared else
             torch.empty(grid * (wavefront + flat), dtype=_I32,
                         device=device))
@@ -146,8 +146,8 @@ def coloring_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             col_idx.data_ptr(), *slotted, cursors.data_ptr(), wavefront,
             max_rounds, *codec, bad.data_ptr(), bits.data_ptr(), words,
             lane_deg.data_ptr(), windows.data_ptr(),
-            small[grid + 2:].data_ptr(), small.data_ptr(),
-            small[grid:grid + 2].data_ptr(),
+            small[grid + 1:].data_ptr(), small.data_ptr(),
+            small[grid:grid + 1].data_ptr(),
             None if wave is None else wave.data_ptr(), visits.data_ptr(),
             int(packed), *ring_args(ring), grid, stream)
     check_launch(err, "coloring_drain")

@@ -124,7 +124,7 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
     lane_res = torch.empty(wavefront * granularity, dtype=torch.float32,
                            device=device)
     windows = window_words(n, granularity, device)
-    small = torch.zeros(2 * grid + 5, dtype=_I32, device=device)
+    small = torch.zeros(2 * grid + 4, dtype=_I32, device=device)
     long_segs = i32(budget)
     scan_keep = i32(n_check)
     wave = (None if wave_in_shared else i32(grid * 2 * wavefront))
@@ -139,12 +139,12 @@ def pagerank_drain_cuda(carry, row_ptr: torch.Tensor, col_idx: torch.Tensor,
             unit_contrib.data_ptr(), units5[2 * budget:].data_ptr(),
             units5[3 * budget:].data_ptr(), seg_contrib.data_ptr(),
             seg_words.data_ptr(), seg_words[n:].data_ptr(),
-            small[2 * grid + 2:].data_ptr(), long_segs.data_ptr(),
-            small[2 * grid + 4:].data_ptr(), scan_keep.data_ptr(),
+            small[2 * grid + 1:].data_ptr(), long_segs.data_ptr(),
+            small[2 * grid + 3:].data_ptr(), scan_keep.data_ptr(),
             seg_words[2 * n:].data_ptr(),
-            windows.data_ptr(), small[2 * grid + 3:].data_ptr(),
+            windows.data_ptr(), small[2 * grid + 2:].data_ptr(),
             small.data_ptr(), small[grid:2 * grid].data_ptr(),
-            small[2 * grid:2 * grid + 2].data_ptr(),
+            small[2 * grid:2 * grid + 1].data_ptr(),
             None if wave is None else wave.data_ptr(), units.data_ptr(),
             int(packed), *ring_args(ring), grid,
             torch.cuda.current_stream().cuda_stream)

@@ -7,8 +7,12 @@ warp's or a block's share of a round and on two streams, every drain
 kernel at granularities 2, 3 and 8 (and BFS per_item) and in its fused,
 traced and slotted modes against the plain fused drain, streams on the
 card against the CPU, B3-pr's ordered sum on a hub graph past a block's
-sort, and the flash-attention kernel B5 (its tensor-core and CUDA-core
-instances) against ``attention_ref`` within its stated tolerance.
+sort, B3-BFS where its design bends (a backlog past W, resumed segments,
+a ring that drops, hubs whose round takes two tiles a block, a wavefront
+in global scratch; every mode at G = 1, 2, 4, 64 and per_item), the drain
+kernels' grid barrier alone (10^5 checked rounds), and the
+flash-attention kernel B5 (its tensor-core and CUDA-core instances)
+against ``attention_ref`` within its stated tolerance.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -293,7 +297,7 @@ def test_stream_kernel_matches_plain(n_items, budget, how):
 
 # ----------------------- B3, the drain megakernels (BFS, PageRank, coloring)
 def _algo_setup(graph, algo, policy, backend="auto", params=None,
-                trace=None, **kw):
+                trace=None, queue_capacity=None, init=None, **kw):
     from repro_torch.core import SchedulerConfig
     from repro_torch.runtime import build_program, config_for, parse_policy
     from repro_torch.runtime.api import drain_setup
@@ -302,7 +306,8 @@ def _algo_setup(graph, algo, policy, backend="auto", params=None,
     base.update(kw)
     cfg = config_for(SchedulerConfig(**base), parse_policy(policy))
     return drain_setup(build_program(algo, graph, cfg, params=params),
-                       graph, cfg, trace=trace)
+                       graph, cfg, trace=trace,
+                       queue_capacity=queue_capacity, init=init)
 
 
 def _setup(graph, policy, source=0, backend="auto", **kw):
@@ -331,7 +336,7 @@ def _assert_same(a, b):
 def test_bfs_drain_kernel_matches_persistent_and_plain(graph, workers):
     """dist, counters and the final queue against the persistent cell on
     the kernels and, at 64 workers, the plain fused drain.  8192 workers x
-    4 puts the wavefront (256 KB) past shared memory, on the global-scratch
+    4 puts the wavefront (512 KB) past shared memory, on the global-scratch
     path; there the plain stream's [W, budget] slices would not fit on the
     card."""
     _require_cuda()
@@ -1198,6 +1203,150 @@ def test_coloring_drains_on_two_streams_leave_their_scratch_zero():
         _assert_same(carry, want)
     assert all(_coloring_scratch_is_zero(s) for s in streams)
     assert _coloring_scratch_is_zero()
+
+
+
+# B3-BFS where its design bends: (case, mode, G).  "rmat": rmat(12) (the
+# slotted mode: rmat(11)'s slotted view) at W = 128; "backlog": 586 sources
+# queued at launch, more than W; "resumed": the same drain cut every two
+# rounds, tasks waiting at each cut; "drop": a ring of 48 slots at W = 32;
+# "hub": a root, eight hubs of 100,000 edges each (onto 512 targets,
+# duplicates kept) at W = 16 and a budget of 2^20, so the hub round's
+# 800,000 units take two tiles a block; "hub_budget": the same at a budget
+# of one hub's degree, which the first hub fills; "global": W = 16,384,
+# whose wavefront lives in global scratch, at a budget of rmat(12)'s max
+# degree
+BFS_CASES = (
+    [("rmat", mode, g) for g in (1, 2, 4, 64)
+     for mode in ("single", "fused", "traced", "slotted", "per_item")]
+    + [(case, "single", g) for case in ("backlog", "resumed", "drop", "hub",
+                                        "hub_budget", "global")
+       for g in (1, 4)]
+    + [("backlog", "fused", 2), ("resumed", "traced", 1),
+       ("drop", "per_item", 1), ("hub", "per_item", 1),
+       ("hub_budget", "traced", 4), ("global", "per_item", 1)])
+
+
+def _bfs_hub_graph(device):
+    from repro_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(21)
+    hubs, width, targets = 8, 100_000, 512
+    n = 1 + hubs + targets
+    rows = ([np.arange(1, hubs + 1)]
+            + [np.sort(rng.integers(hubs + 1, n, size=width))
+               for _ in range(hubs)]
+            + [np.zeros(1, np.int64)] * targets)
+    row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    return CSRGraph(
+        row_ptr=torch.as_tensor(row_ptr.astype(np.int32), device=device),
+        col_idx=torch.as_tensor(np.concatenate(rows).astype(np.int32),
+                                device=device))
+
+
+def _bfs_case_graph(case, mode):
+    from repro_torch.graph import rmat
+
+    if mode == "slotted":
+        return _slotted_view()
+    if case.startswith("hub"):
+        return _bfs_hub_graph("cuda")
+    return rmat(12, 16, seed=2, device="cuda")
+
+
+def _bfs_case_setup(graph, case, mode, g, kernel):
+    from repro_torch.algorithms.bfs import INF, BFSState
+    from repro_torch.core import ChunkCodec, WorkCounter, chunk_seeds
+    from repro_torch.obs import Trace
+
+    topology = "fused" if mode == "fused" else "single"
+    policy = f"{topology}.{kernel}" + ("" if g == 1 else f".g{g}")
+    params = {"source": 0}
+    if mode == "per_item":
+        params["strategy"] = "per_item"
+    workers = {"drop": (16, 2), "hub": (8, 2), "hub_budget": (8, 2),
+               "global": (4096, 4)}.get(case, (64, 2))
+    if case == "hub":
+        params["work_budget"] = 2 ** 20
+    elif case == "hub_budget":
+        params["work_budget"] = 100_000
+    elif case == "global":
+        params["work_budget"] = int(graph.degrees().max())
+    init = None
+    if case in ("backlog", "resumed"):
+        n = graph.num_vertices
+        sources = np.arange(0, n, 7)
+        dist = torch.full((n,), INF, dtype=torch.int32, device=graph.device)
+        dist[torch.as_tensor(sources, device=graph.device)] = 0
+        init = (BFSState(dist=dist, counter=WorkCounter.zero(graph.device)),
+                chunk_seeds(sources, ChunkCodec(g), graph.row_ptr))
+    return _algo_setup(graph, "bfs", policy, params=params,
+                       trace=Trace(capacity=64) if mode == "traced" else None,
+                       num_workers=workers[0], fetch_size=workers[1],
+                       queue_capacity=48 if case == "drop" else None,
+                       init=init)
+
+
+@pytest.mark.parametrize("case,mode,g", BFS_CASES)
+def test_bfs_drain_where_its_design_bends_matches_persistent_and_plain(
+        case, mode, g):
+    """B3-BFS on each case above, in each mode, at G = 1, 2, 4 and 64 and
+    per_item: one launch a segment and no other kernel, the carry bitwise
+    equal to the persistent drain on the card (B1, B2) and to the plain
+    fused drain on the CPU -- the ring, dist, the cursors, the counters
+    with splits and dropped, trace rows."""
+    _require_cuda()
+    from repro_torch.core import (megakernel_drive, megakernel_segment,
+                                  persistent_drive)
+
+    graph = _bfs_case_graph(case, mode)
+    mega = _bfs_case_setup(graph, case, mode, g, "megakernel")
+    assert mega.kernel is not None
+    before = _launches()
+    if case == "resumed":
+        seg = megakernel_segment(mega.step, mega.cond, mega.carry,
+                                 kernel=mega.kernel)
+        got, limit, launches, waited = mega.carry, 0, 0, 0
+        while bool(mega.cond(got)):
+            limit += 2
+            got = seg(got, limit)
+            launches += 1
+            waited += int(mega.ops.size(got[0])) > 128
+        assert waited > 0
+    else:
+        got = megakernel_drive(mega.step, mega.cond, mega.carry,
+                               kernel=mega.kernel)
+        launches = 1
+    torch.cuda.synchronize()
+    assert [now - was for now, was in zip(_launches(), before)] == \
+        [launches, 0, 0, 0, 0, 0]
+    assert int(got[2]) > 2
+    assert (int(mega.dropped(got[0])) > 0) == (case == "drop")
+    persistent = _bfs_case_setup(graph, case, mode, g, "persistent")
+    _assert_same(got, persistent_drive(persistent.step, persistent.cond,
+                                       persistent.carry))
+    plain = _bfs_case_setup(graph.to("cpu"), case, mode, g, "megakernel")
+    assert plain.kernel is None
+    _assert_same(got, megakernel_drive(plain.step, plain.cond, plain.carry))
+
+
+@pytest.mark.parametrize("grid", ["full", "one"])
+@pytest.mark.parametrize("instance", ["spin", "grid_sync"])
+def test_grid_barrier_lets_no_block_through_early(instance, grid):
+    """10^5 rounds of the drain kernels' grid barrier (and of cooperative
+    groups' grid sync) over the co-resident grid of 512-thread blocks and
+    over one block: every block adds to the round's word before the
+    barrier and reads the grid's size there after it, and every thread
+    makes a plain store of the round before it that a thread of another
+    block reads after it (with __ldcg), or the launch traps."""
+    _require_cuda()
+    from repro_torch.kernels.drain_loop.grid_barrier import (
+        barrier_grid, grid_barrier_cuda)
+
+    most, sms = barrier_grid(instance)
+    assert most >= sms >= 1
+    grid_barrier_cuda(10 ** 5, most if grid == "full" else 1, instance)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------ B5, flash attention

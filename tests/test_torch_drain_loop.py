@@ -520,3 +520,127 @@ def test_chunk_operands_and_chunk_degree_bound(graphs, g):
     rp = np.asarray(jgraph.row_ptr).astype(np.int64)
     ends = np.minimum(np.arange(n) + g, n)
     assert max_chunk_degree_of(tgraph, g) == int((rp[ends] - rp[:-1]).max())
+
+
+# ------- the cases B3-BFS's design bends on: the plain fused drain (the
+# kernel's oracle on the card) against JAX's persistent cell, bit for bit.
+# "backlog": 37 sources queued at launch, more than W = 8; "resumed": the
+# same drain cut into segments of two rounds, tasks waiting at the cuts;
+# "drop": a ring of 12 slots; "hub": a root, four hubs of 60 edges each
+# (onto 24 targets, duplicates kept) under a budget past the hub round's
+# 240 units; "hub_budget": the same at a budget of one hub's degree, which
+# the first hub fills; "wide": W = 512, past the graph, at a budget of
+# the max degree
+BFS_BENDS = (
+    [("backlog", mode, g) for g in (1, 2, 4, 64)
+     for mode in ("single", "fused", "traced", "per_item")]
+    + [(case, "single", g) for case in ("resumed", "drop", "hub",
+                                        "hub_budget", "wide")
+       for g in (1, 4)])
+
+
+def _bend_graphs(case, graphs):
+    if not case.startswith("hub"):
+        return graphs["rmat(8,8,1)"]
+    rng = np.random.default_rng(5)
+    hubs, width, targets = 4, 60, 24
+    n = 1 + hubs + targets
+    rows = ([np.arange(1, hubs + 1)]
+            + [np.sort(rng.integers(hubs + 1, n, size=width))
+               for _ in range(hubs)]
+            + [np.zeros(1, np.int64)] * targets)
+    row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    col_idx = np.concatenate(rows)
+    return (jg.CSRGraph(row_ptr=jnp.asarray(row_ptr, jnp.int32),
+                        col_idx=jnp.asarray(col_idx, jnp.int32)),
+            graph_from_numpy(row_ptr, col_idx, device="cpu"))
+
+
+def _bend_leaves(carry, fused):
+    """The carry's leaves as numpy arrays, the same order for both
+    packages: the queue's, dist, the counters, rounds, processed, then the
+    ring's."""
+    queue, state = carry[0], carry[1]
+    lanes = queue.lanes if fused else queue
+    out = [lanes.buf, lanes.head, lanes.tail, lanes.dropped]
+    if fused:
+        out.append(queue.rr)
+    out += [state.dist, state.counter.work, state.counter.splits,
+            state.counter.rounds, carry[2], carry[3]]
+    if len(carry) > 4:
+        out += [carry[4].buf, carry[4].cursor]
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("case,mode,g", BFS_BENDS)
+def test_bfs_drain_where_the_kernel_bends_matches_jax(graphs, case, mode, g):
+    from repro.core import WorkCounter as JCounter
+    from repro.core import chunk_seeds as j_chunk_seeds
+    from repro.obs import TraceRing as JRing
+    from repro.runtime.api import instrument_step as j_instrument
+    from repro_torch.core import WorkCounter, chunk_seeds
+    from repro_torch.obs import Trace
+
+    jgraph, tgraph = _bend_graphs(case, graphs)
+    n = tgraph.num_vertices
+    topology = "fused" if mode == "fused" else "single"
+    suffix = "" if g == 1 else f".g{g}"
+    params = {"source": 0}
+    if mode == "per_item":
+        params["strategy"] = "per_item"
+    if case == "hub":
+        params["work_budget"] = 1024
+    elif case == "hub_budget":
+        params["work_budget"] = 60
+    elif case == "wide":
+        params["work_budget"] = int(np.asarray(jgraph.degrees()).max())
+    base = (dict(num_workers=128, fetch_size=4) if case == "wide"
+            else dict(num_workers=4, fetch_size=2))
+    capacity = 12 if case == "drop" else None
+    jinit = tinit = None
+    if case in ("backlog", "resumed"):
+        sources = np.arange(0, n, 7)
+        jinit = (jbfs.BFSState(
+            dist=jnp.full((n,), jbfs.INF, jnp.int32).at[sources].set(0),
+            counter=JCounter.zero()),
+            j_chunk_seeds(sources, JCodec(g), jgraph.row_ptr))
+        dist = torch.full((n,), tbfs.INF, dtype=torch.int32)
+        dist[torch.as_tensor(sources)] = 0
+        tinit = (tbfs.BFSState(dist=dist, counter=WorkCounter.zero("cpu")),
+                 chunk_seeds(sources, ChunkCodec(g), tgraph.row_ptr))
+
+    jpolicy = j_parse(f"{topology}.persistent{suffix}")
+    jcfg = j_config_for(JConfig(**base), jpolicy)
+    jprogram = j_build("bfs", jgraph, jcfg, params=params)
+    jq, js, jops, jstep, jcond, _ = j_setup(jprogram, jgraph, jcfg, jpolicy,
+                                           capacity, init=jinit)
+    jcarry = (jq, js, jnp.int32(0), jnp.int32(0))
+    if mode == "traced":
+        jstep, jcond = j_instrument(jstep, jcond, jops, jprogram)
+        jcarry = jcarry + (JRing.make(64),)
+    jcarry = j_persistent_drive(jstep, jcond, jcarry)
+
+    tcfg = config_for(SchedulerConfig(**base),
+                      parse_policy(f"{topology}.megakernel{suffix}"))
+    setup = drain_setup(build_program("bfs", tgraph, tcfg, params=params),
+                        tgraph, tcfg, queue_capacity=capacity,
+                        trace=Trace(capacity=64) if mode == "traced" else None,
+                        init=tinit)
+    assert setup.kernel is None             # CPU tensors: the plain drain
+    if case == "resumed":
+        seg = megakernel_segment(setup.step, setup.cond, setup.carry)
+        tcarry, limit, waited = setup.carry, 0, 0
+        while bool(setup.cond(tcarry)):
+            limit += 2
+            tcarry = seg(tcarry, limit)
+            waited += int(tcarry[0].size) > tcfg.wavefront
+        assert waited > 0
+    else:
+        tcarry = megakernel_drive(setup.step, setup.cond, setup.carry)
+
+    fused = topology == "fused"
+    for got, want in zip(_bend_leaves(tcarry, fused),
+                         _bend_leaves(jcarry, fused), strict=True):
+        np.testing.assert_array_equal(got, want)
+    assert (int(setup.dropped(tcarry[0])) > 0) == (case == "drop")
+    assert int(tcarry[2]) > 2

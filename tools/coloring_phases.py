@@ -37,6 +37,14 @@ PHASES = ("pop", "or", "pick", "detect", "window", "push_count", "ring")
 WALKS = ("or", "detect")
 MAX_ROUNDS = 4096                  # rounds whose slowest walk is kept
 
+# the card's global nanosecond clock, for a drain source's anonymous
+# namespace; no memory access moves across a reading
+CLOCK = ("__device__ __forceinline__ unsigned long long now_ns() {\n"
+         "  unsigned long long t;\n"
+         '  asm volatile("mov.u64 %0, %%globaltimer;"\n'
+         '               : "=l"(t) :: "memory");\n'
+         "  return t;\n}\n")
+
 # (anchor, replacement) pairs, each anchor once in csrc/coloring_drain.cu
 PATCH = (
     ("namespace {\n\nusing namespace drain;\n",
@@ -44,11 +52,7 @@ PATCH = (
      "__device__ unsigned long long g_walk[6];\n"
      f"__device__ unsigned long long g_slowest[2][{MAX_ROUNDS}];\n\n"
      "namespace {\n\n"
-     "using namespace drain;\n\n"
-     "__device__ __forceinline__ unsigned long long now_ns() {\n"
-     "  unsigned long long t;\n"
-     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
-     "  return t;\n}\n"),
+     "using namespace drain;\n\n" + CLOCK),
     ("  long long visits = 0;\n",
      "  long long visits = 0;\n"
      "  const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;\n"
@@ -127,21 +131,25 @@ extern "C" int coloring_phases(unsigned long long* phase,
 """
 
 
-def instrumented_copy(tree: Path) -> Path:
-    """``tree``'s package copied under ``tree/build/phases/src``, its
-    coloring drain timed phase by phase; returns the copy's ``src``."""
+def instrumented_copy(tree: Path, source: str = "coloring_drain",
+                      patch=PATCH, reader: str = READER,
+                      tool: str = "tools/coloring_phases.py") -> Path:
+    """``tree``'s package copied under ``tree/build/phases/src``, with
+    ``csrc/<source>.cu`` patched by the (anchor, replacement) pairs of
+    ``patch`` (each anchor once in the source) and ``reader`` appended;
+    returns the copy's ``src``."""
     src = tree / "build" / "phases" / "src"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(tree / "src" / "repro_torch", src / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = src / "repro_torch" / "csrc" / "coloring_drain.cu"
+    path = src / "repro_torch" / "csrc" / f"{source}.cu"
     text = path.read_text()
-    for anchor, replacement in PATCH:
+    for anchor, replacement in patch:
         if text.count(anchor) != 1:
-            raise SystemExit(f"coloring_drain.cu no longer has one "
-                             f"{anchor!r}: update tools/coloring_phases.py")
+            raise SystemExit(f"{source}.cu no longer has one "
+                             f"{anchor!r}: update {tool}")
         text = text.replace(anchor, replacement)
-    path.write_text(text + READER)
+    path.write_text(text + reader)
     return src
 
 

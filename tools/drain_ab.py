@@ -12,7 +12,8 @@ printed), makes rmat(scale, 16, seed 1) on the card, and times each drain
 under ``single.megakernel`` with W = 4096 (1024 workers x 4): one warm-up
 drain, then ``--reps`` drains, each under torch.profiler; a drain's time is
 its kernel's device time.  BFS runs from the highest-degree vertex at
-granularity 1, coloring whole at granularity 1 and 4 (``coloring.g4``),
+granularity 1, 4 (``bfs.g4``) and with per_item expansion at granularity 1
+(``bfs.per_item``), coloring whole at granularity 1 and 4 (``coloring.g4``),
 PageRank (damping 0.85, eps 1e-6, check_size 64) at granularity 1 cut at
 ``--pagerank-rounds`` rounds; ``--drains`` takes a part.  Only the public
 entry points (``build_program``, ``execute``) are called, so every tree
@@ -28,7 +29,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-DRAINS = ("bfs", "pagerank", "coloring", "coloring.g4")
+DRAINS = ("bfs", "bfs.g4", "bfs.per_item", "pagerank", "coloring",
+          "coloring.g4")
 
 
 def turn(root: Path, scale: int, reps: int, pagerank_rounds: int,
@@ -46,8 +48,8 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int,
 
     if not torch.cuda.is_available():
         raise SystemExit("drain_ab needs a CUDA card")
-    reports = build.build([f"{algo}_drain"
-                           for algo in ("bfs", "pagerank", "coloring")])
+    reports = build.build(sorted({f"{drain.partition('.')[0]}_drain"
+                                  for drain in drains}))
     registers = {name: [line.strip() for line in text.splitlines()
                         if "Used" in line or "spill" in line]
                  for name, text in reports.items()}
@@ -57,30 +59,40 @@ def turn(root: Path, scale: int, reps: int, pagerank_rounds: int,
               "pagerank": {"damping": 0.85, "eps": 1e-6, "check_size": 64}}
     out = {"root": str(root), "registers": registers, "ms": {}, "rounds": {}}
     for drain in drains:
-        algo, _, granularity = drain.partition(".")
+        algo, _, variant = drain.partition(".")
         cut = {"max_rounds": pagerank_rounds} if algo == "pagerank" else {}
+        granularity = variant if variant.startswith("g") else ""
         cfg = config_for(SchedulerConfig(num_workers=1024, fetch_size=4,
                                          **cut),
                          parse_policy("single.megakernel"
                                       + (f".{granularity}" if granularity
                                          else "")))
+        drain_params = params[algo]
+        if variant == "per_item":
+            drain_params = {**drain_params, "strategy": "per_item"}
 
         def run():
             return execute(build_program(algo, graph, cfg,
-                                         params=params[algo]), graph, cfg)
+                                         params=drain_params), graph, cfg)
 
         out["rounds"][drain] = run().info["rounds"]
         times = []
         for _ in range(reps):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
+            # the profiler now and then keeps no record of a run: up to
+            # three tries
+            for _ in range(3):
                 torch.cuda.synchronize()
-            ms = sum(e.self_device_time_total / 1e3
-                     for e in prof.key_averages()
-                     if f"{algo}_drain" in e.key)
-            if not ms > 0:
-                raise AssertionError(f"the profiler saw no {algo}_drain")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+                ms = sum(e.self_device_time_total / 1e3
+                         for e in prof.key_averages()
+                         if f"{algo}_drain" in e.key)
+                if ms > 0:
+                    break
+            else:
+                raise AssertionError(f"the profiler saw no {algo}_drain in "
+                                     f"three tries")
             times.append(ms)
         out["ms"][drain] = times
     return out

@@ -1,9 +1,10 @@
-"""Time B1, the ordered scatter-add and B2 of checkouts of the port on one
-card.
+"""Time B1, the ordered scatter-add, B2 and the drain kernels' grid
+barrier of checkouts of the port on one card.
 
     python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT            # rmat(21)
     python3 tools/kernel_ab.py --cases compact A B C        # B2 alone
     python3 tools/kernel_ab.py --cases lbs OLD NEW          # B1 alone
+    python3 tools/kernel_ab.py --cases barrier OLD NEW      # the barrier
     python3 tools/kernel_ab.py --scale 14 --reps 2 . .      # a quick rehearsal
 
 A checkout is a directory that holds ``src/repro_torch``.  The trees run in
@@ -12,7 +13,8 @@ turns, in the order given and then reversed (OLD NEW NEW OLD for two;
 imports the checkout's package, builds the kernels its cases need from its
 own sources (ptxas's register and spill lines are printed), makes
 rmat(scale, 16, seed 1) on the card, and times each case of ``--cases``
-(``lbs``, ``scatter``, ``compact``, ``drain``; all four unless given) by
+(``lbs``, ``scatter``, ``compact``, ``drain``, ``barrier``; all five
+unless given) by
 torch.profiler's device time (each device op's total over ``--reps``
 calls, so its split is kept), between CUDA events, and by the host's
 microseconds to issue a call (``--reps`` calls back to back, timed before
@@ -43,7 +45,14 @@ the closing synchronize):
   ``--rounds`` rounds once under the profiler (device time, device ops a round, busy share); then cut at
   a quarter of that and at all of it, twice each without the profiler:
   the difference of the medians over the rounds between is the host-bound
-  drain's milliseconds a round, its setup left out.
+  drain's milliseconds a round, its setup left out;
+* ``barrier``: ``--barriers`` rounds of the drain kernels' grid barrier
+  (``csrc/grid_barrier.cu``: each of its instances, cooperative groups'
+  ``this_grid().sync()`` among them) in one cooperative launch over one
+  and two 512-thread blocks an SM (B3-BFS's and B3-pr's grid, B3-col's),
+  timed between CUDA events: microseconds a barrier, the round's one
+  atomic add and one read, and each thread's one store and one read of
+  another block's store, included.
 
 Every result is held bit for bit against the sequential sum (numpy's
 ``add.at`` in float32, ``bincount`` in float64), ``compact_ref`` and
@@ -65,7 +74,7 @@ import numpy as np
 
 from drain_ab import alternate, card
 
-CASES = ("lbs", "scatter", "compact", "drain")
+CASES = ("lbs", "scatter", "compact", "drain", "barrier")
 SEGMENT_LENGTHS = (1, 8, 64, 512, 2048, 16384)
 
 
@@ -147,8 +156,39 @@ def segment_lengths(index, n: int) -> dict:
     return out
 
 
+def barrier_us(barriers: int) -> dict:
+    """Microseconds a barrier of each instance of ``csrc/grid_barrier.cu``
+    at one and two blocks an SM (``{instance}_x{blocks an SM}``), each
+    the median of three launches of ``barriers`` rounds after a warm-up
+    launch, between CUDA events."""
+    import torch
+
+    from repro_torch.kernels.drain_loop.grid_barrier import (
+        INSTANCES, barrier_grid, grid_barrier_cuda)
+
+    out = {}
+    for instance in INSTANCES:
+        most, sms = barrier_grid(instance)
+        for per_sm in (1, 2):
+            if per_sm * sms > most:
+                continue
+            grid = per_sm * sms
+            grid_barrier_cuda(1000, grid, instance)
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                grid_barrier_cuda(barriers, grid, instance)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(1e3 * start.elapsed_time(end) / barriers)
+            out[f"{instance}_x{per_sm}"] = statistics.median(times)
+    return out
+
+
 def turn(root: Path, scale: int, reps: int, rounds: int,
-         cases: tuple) -> dict:
+         cases: tuple, barriers: int = 10 ** 5) -> dict:
     """One tree's readings of ``cases``, in this process."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -167,9 +207,11 @@ def turn(root: Path, scale: int, reps: int, rounds: int,
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     reports = build.build(
-        ["compact"] + (["ordered_scatter_add"]
-                       if {"scatter", "drain"} & set(cases) else [])
-        + (["lbs"] if "lbs" in cases else []))
+        (["compact"] if {"compact", "drain"} & set(cases) else [])
+        + (["ordered_scatter_add"]
+           if {"scatter", "drain"} & set(cases) else [])
+        + (["lbs"] if "lbs" in cases else [])
+        + (["grid_barrier"] if "barrier" in cases else []))
     registers = {name: [line.strip() for line in text.splitlines()
                         if "Used" in line or "spill" in line]
                  for name, text in reports.items()}
@@ -183,6 +225,8 @@ def turn(root: Path, scale: int, reps: int, rounds: int,
     out = {"root": str(root), "registers": registers, "ms": {},
            "events_ms": {}, "host_us": {}, "ops": {}, "split": {},
            "shapes": {"n": n, "m": m, "k": budget, "n_push": n_push}}
+    if "barrier" in cases:
+        out["barrier_us"] = barrier_us(barriers)
 
     timed = {}
     if "lbs" in cases:
@@ -319,6 +363,7 @@ def main() -> int:
     ap.add_argument("--scale", type=int, default=21)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=1024)
+    ap.add_argument("--barriers", type=int, default=10 ** 5)
     ap.add_argument("--cases", default=",".join(CASES),
                     help="a comma list of " + ", ".join(CASES))
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
@@ -328,12 +373,14 @@ def main() -> int:
         ap.error(f"--cases takes {', '.join(CASES)}")
     if args.turn is not None:
         print(json.dumps(turn(args.turn.resolve(), args.scale, args.reps,
-                              args.rounds, cases)), flush=True)
+                              args.rounds, cases, args.barriers)),
+              flush=True)
         return 0
     trees = [tree.resolve() for tree in args.trees]
     readings = alternate(__file__, trees,
                          ["--scale", str(args.scale), "--reps",
                           str(args.reps), "--rounds", str(args.rounds),
+                          "--barriers", str(args.barriers),
                           "--cases", args.cases])
     name = card()
     print(name)
@@ -343,6 +390,10 @@ def main() -> int:
             f"{case}_{key}": statistics.median(r[key][case] for r in runs)
             for case in runs[0]["ms"]
             for key in ("ms", "ops", "host_us", "events_ms")}
+        if "barrier" in cases:
+            for key in runs[0]["barrier_us"]:
+                median[f"barrier_{key}_us"] = statistics.median(
+                    r["barrier_us"][key] for r in runs)
         if "drain" in cases:
             for key in ("seconds", "ms_a_round", "device_ops_a_round"):
                 median[f"pagerank_persistent_{key}"] = statistics.median(
