@@ -117,6 +117,27 @@ Phases, in order; any failure exits non-zero and prints no result:
      coloring also whole); at rmat(14) each slotted
      drain whole against the plain fused drain on the CPU; a child process
      killed with SIGKILL in its snapshot hook, resumed here bit for bit;
+  4h. the multi-tenant task server (ROADMAP A11): four lanes under the
+     ``weighted`` policy at W = 4096 -- BFS on rmat from 4's source and
+     from a seeded second source, coloring on rmat, BFS on grid2d from
+     vertex 0 -- each granted lane a step through B1 and B2 (and the
+     ordered scatter-add for PageRank): BFS dist equal to scipy's, the
+     coloring valid, no drop, no misrouted task, the jobs' items summing
+     to the server's, the B1/B2 launches those the lane steps imply and no
+     drain kernel; rounds, occupancy, wall time, and device ops a round
+     and busy share over the first 256 rounds under the profiler.  At
+     rmat(14) and grid2d(128) the reference's 8-job mix (PageRank at eps
+     1e-6) under ``weighted`` g1 and g4 and ``round_robin`` g1, traced,
+     bitwise equal to the same server run on the CPU (a child process a
+     cell, one thread each, started after 2; 4h waits for them before it
+     measures) -- results, telemetry, stats and trace rows --,
+     ``round_robin`` equal to ``serve_sequential``, the fused rounds
+     below it; a streaming BFS tenant under ``kernel="megakernel"``: the
+     warning, one B3-slotted launch a batch and none for the batch
+     tenants, dist equal to a cold drain's; ``Autotuner.tune`` with the
+     real runner, then a cache hit that measures nothing; the CLI
+     ``python -m repro_torch.launch.taskserver`` as a child process on the
+     card, exit 0, fused rounds below sequential;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events; B1 also at coloring's
@@ -156,6 +177,7 @@ go to ``chiprun_out/chip_smoke/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -202,6 +224,23 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_rows(prof) -> list:
+    """``[(device op, total ms, calls), ...]`` of a finished profile: its
+    device events summed by name, read straight from the profiler's Kineto
+    results.  ``key_averages()`` gives the same sums but first builds a
+    Python event tree over every record (about 0.3 ms a record on the card
+    host: a minute for 220,000 records)."""
+    device = torch.autograd.DeviceType.CUDA
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != device:
+            continue
+        ms, calls = totals.get(e.name(), (0.0, 0))
+        totals[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+    return [(name, ms, calls) for name, (ms, calls) in totals.items()
+            if ms > 0]
+
+
 def device_profile(fn, reps: int = 1):
     """``(device ms per call, [(device op, total ms, calls), ...])`` from
     torch.profiler's CUDA activity over ``reps`` calls, or ``(None, [])``
@@ -220,8 +259,7 @@ def device_profile(fn, reps: int = 1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     rows.sort(key=lambda r: -r[1])
     per_call = sum(ms / calls * max(1, round(calls / reps))
                    for _, ms, calls in rows)
@@ -1438,10 +1476,11 @@ def per_item_cut(graph, params, card: str) -> dict:
 
 
 def wide_bfs(graph, grid, source: int, want, want_grid, card: str,
-             small_scale: int) -> dict:
+             small_scale: int, grid_persistent: tuple) -> dict:
     """Phase 4e, BFS: merge path at g4 and per_item at g1 and g4 through
-    the BFS drain kernel, against scipy, the persistent cells, segments and
-    the plain fused drain."""
+    the BFS drain kernel, against scipy, the persistent cells (on grid2d
+    [4]'s ``single.persistent.g4`` drain, ``grid_persistent``), segments
+    and the plain fused drain."""
     from repro_torch.graph import rmat
     from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
 
@@ -1449,8 +1488,11 @@ def wide_bfs(graph, grid, source: int, want, want_grid, card: str,
     for label, g, src, want_d in (("rmat", graph, source, want),
                                   ("grid2d", grid, 0, want_grid)):
         params = {"source": src}
-        carry_p, secs_p = drive("bfs", g, algo_config("single.persistent"
-                                                      + WIDE), params)
+        if label == "grid2d":
+            carry_p, secs_p = grid_persistent
+        else:
+            carry_p, secs_p = drive("bfs", g, algo_config(
+                "single.persistent" + WIDE), params)
         reset_counts()
         carry_m, secs_m = drive("bfs", g,
                                 algo_config("single.megakernel" + WIDE),
@@ -2695,6 +2737,539 @@ def streaming_path(graph, source: int, card: str, small_scale: int) -> dict:
     return out
 
 
+# ------------------------------------------- phase 4h: the task server (A11)
+#: the reference's 8-job mix (tests/test_server.py), PageRank at eps 1e-6
+SERVER_MIX = [("bfs", "grid", {"source": 0}, 1.0),
+              ("bfs", "rmat", {"source": 3}, 1.0),
+              ("pagerank", "grid", {"eps": 1e-6}, 1.0),
+              ("coloring", "rmat", {}, 1.0),
+              ("bfs", "grid", {"source": 17}, 2.0),
+              ("coloring", "grid", {}, 1.0),
+              ("pagerank", "rmat", {"eps": 1e-6}, 1.0),
+              ("bfs", "rmat", {"source": 9}, 1.0)]
+#: (policy, granularity) of the small server runs, each traced
+SERVER_CELLS = {"weighted.g1": ("weighted", 1), "weighted.g4": ("weighted", 4),
+                "round_robin.g1": ("round_robin", 1)}
+SERVER_SMALL = {"workers": 256, "fetch": 4, "grid_side": 128}
+#: B1 launches of one lane step of each program's body (coloring: the
+#: assign and detect gathers and the first-free search)
+B1_PER_STEP = {"bfs": 1, "pagerank": 1, "coloring": 3}
+#: rounds of the full-width server run under the profiler
+PROFILED_ROUNDS = 256
+#: ring rows of a small traced run: one a lane step, ~4,100 at most
+SERVER_TRACE_CAPACITY = 16384
+
+#: child processes started by this script, stopped when it ends
+CHILDREN = []
+
+#: a child process that runs small server cells (``server_child``)
+_SERVER_CHILD = """
+import os, sys
+sys.path.insert(0, os.environ["REPO"])
+import chip_smoke
+chip_smoke.server_child()
+"""
+
+
+def small_registry(small_scale: int, device):
+    """``(registry, graphs)``: rmat(small_scale, 16, seed 1) and
+    grid2d(128) on ``device``."""
+    from repro_torch.graph import grid2d, rmat
+    from repro_torch.server import JobRegistry
+
+    side = SERVER_SMALL["grid_side"]
+    graphs = {"rmat": rmat(small_scale, edge_factor=16, seed=1,
+                           device=device),
+              "grid": grid2d(side, side, device=device)}
+    reg = JobRegistry()
+    for name, g in graphs.items():
+        reg.register_graph(name, g)
+    return reg, graphs
+
+
+def small_specs() -> list:
+    from repro_torch.server import JobSpec
+
+    return [JobSpec(a, g, dict(p), weight=w) for a, g, p, w in SERVER_MIX]
+
+
+def small_config(granularity: int):
+    from repro_torch.core import SchedulerConfig
+
+    return SchedulerConfig(num_workers=SERVER_SMALL["workers"],
+                           fetch_size=SERVER_SMALL["fetch"],
+                           granularity=granularity)
+
+
+def server_child() -> None:
+    """The body of a child process: run the small server cells that the
+    JSON in ``SERVER_CHILD`` names (``sequential`` is ``serve_sequential``)
+    on its device and pickle what the parent compares: results, telemetry
+    docs, stats but wall, trace rows and, on the card, the kernel launches
+    beside those the lane steps imply, and the seconds it ran."""
+    import os
+    import pickle
+
+    started = time.perf_counter()
+    spec = json.loads(os.environ["SERVER_CHILD"])
+    sys.path.insert(0, str(ROOT / "src"))
+    device = spec["device"]
+    # a CPU child runs beside the script's host-bound phases: one thread
+    torch.set_num_threads(1 if device == "cpu" else 2)
+    from repro_torch.obs import Trace
+    from repro_torch.server import serve_sequential
+
+    on_card = device == "cuda"
+    reg, graphs = small_registry(spec["scale"], device)
+    out = {"graphs": {k: (g.row_ptr.cpu().numpy(), g.col_idx.cpu().numpy())
+                      for k, g in graphs.items()}, "cells": {}}
+    for cell in spec["cells"]:
+        if on_card:
+            reset_counts()
+        t0 = time.perf_counter()
+        if cell == "sequential":
+            res = serve_sequential(reg, small_specs(),
+                                   config=small_config(1), device=device)
+            if on_card:
+                torch.cuda.synchronize()
+            server = trace = None
+        else:
+            policy, g = SERVER_CELLS[cell]
+            trace = Trace(capacity=SERVER_TRACE_CAPACITY)
+            server, res, _ = serve(reg, small_specs(), small_config(g),
+                                   policy=policy, trace=trace, device=device)
+        stats = dataclasses.asdict(res.stats)
+        stats.pop("wall_seconds")
+        out["cells"][cell] = {
+            "results": res.results,
+            "telemetry": {i: t.as_dict() for i, t in res.telemetry.items()},
+            "stats": stats, "occupancy": res.stats.occupancy,
+            "records": None if trace is None else trace.records,
+            "truncated": None if trace is None else trace.truncated,
+            "counts": read_counts() if on_card else None,
+            "implied": (server_launches(server)
+                        if on_card and server is not None else None),
+            "seconds": time.perf_counter() - t0}
+    out["ran"] = time.perf_counter() - started
+    with open(spec["out"] + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(spec["out"] + ".tmp", spec["out"])
+
+
+def start_server_child(small_scale: int, device: str, cells, tag: str):
+    """Start ``server_child`` on ``device`` (the CPU child sees no card)."""
+    import os
+
+    path = ROOT / "build" / f"chip_smoke_server_{tag}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, REPO=str(ROOT), SERVER_CHILD=json.dumps(
+        {"scale": small_scale, "device": device, "cells": list(cells),
+         "out": str(path)}))
+    if device == "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    logfile = open(path.with_suffix(".log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", _SERVER_CHILD], env=env,
+                            stdout=logfile, stderr=subprocess.STDOUT)
+    logfile.close()
+    CHILDREN.append(proc)
+    return {"proc": proc, "path": path, "tag": tag,
+            "started": time.perf_counter()}
+
+
+def wait_server_child(child: dict) -> dict:
+    import pickle
+
+    t0 = time.perf_counter()
+    rc = child["proc"].wait(timeout=900)
+    log_text = child["path"].with_suffix(".log").read_text()
+    if rc != 0:
+        raise AssertionError(f"the server child {child['tag']} failed: rc "
+                             f"{rc}\n{log_text[-3000:]}")
+    with open(child["path"], "rb") as f:
+        out = pickle.load(f)
+    child["path"].unlink()
+    out["waited"] = time.perf_counter() - t0
+    out["lifetime"] = time.perf_counter() - child["started"]
+    return out
+
+
+def server_launches(server, drains=None) -> dict:
+    """The kernel launches a server run's lane steps imply: B1 per body
+    step (``B1_PER_STEP``), B2 for each lane step, on_empty step and seed
+    push, the ordered scatter-add for each PageRank step, and no drain
+    kernel but ``drains`` (the streaming tenants')."""
+    batch = [j for j in server.jobs
+             if j.spec is None or j.spec.stream is None]
+    return only(
+        lbs=sum(B1_PER_STEP[j.program.algorithm] * j.lane_steps
+                for j in batch),
+        compact=sum(j.lane_steps + j.empty_steps + 1 for j in batch),
+        ordered_scatter_add=sum(j.lane_steps for j in batch
+                                if j.program.algorithm == "pagerank"),
+        **(drains or {}))
+
+
+def check_server(label: str, server, res, counts: dict, drains=None):
+    """No drop and no misrouted task in any job, the jobs' items summing to
+    the server's, the launch counts the lane steps imply."""
+    for i, tel in res.telemetry.items():
+        if tel.dropped or tel.routing_mismatches:
+            raise AssertionError(f"{label}: job {i} dropped {tel.dropped}, "
+                                 f"{tel.routing_mismatches} misrouted")
+    items = sum(t.items_processed for t in res.telemetry.values())
+    if items != res.stats.items_processed:
+        raise AssertionError(f"{label}: jobs' items {items} != the "
+                             f"server's {res.stats.items_processed}")
+    want = server_launches(server, drains)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, the lane steps "
+                             f"imply {want}")
+
+
+def serve(registry, specs, cfg, policy="weighted", lanes=None,
+          device="cuda", **kw):
+    """``(server, result, seconds)`` of one TaskServer run on ``device``;
+    on the card the seconds end in a synchronize."""
+    from repro_torch.server import TaskServer
+
+    server = TaskServer(registry, num_lanes=lanes or len(specs), config=cfg,
+                        policy=policy, device=device, **kw)
+    for spec in specs:
+        server.submit(spec)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = server.run()
+    sync()
+    return server, res, time.perf_counter() - t0
+
+
+def server_full_width(graph, grid, source: int, want, want_grid,
+                      card: str) -> dict:
+    """The served path at full width: BFS from [4]'s source and from a
+    seeded second source, coloring on rmat, BFS on grid2d from vertex 0,
+    four lanes under ``weighted``; then its first rounds under the
+    profiler."""
+    from repro_torch.algorithms.coloring import validate_coloring
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.server import JobRegistry, JobSpec
+
+    reg = JobRegistry()
+    reg.register_graph("rmat", graph)
+    reg.register_graph("grid", grid)
+    cfg = SchedulerConfig(num_workers=1024, fetch_size=4)
+    reached = torch.nonzero(graph.degrees() > 0).flatten().cpu().numpy()
+    second = int(reached[np.random.default_rng(22).integers(len(reached))])
+    specs = [JobSpec("bfs", "rmat", {"source": source}),
+             JobSpec("bfs", "rmat", {"source": second}),
+             JobSpec("coloring", "rmat"),
+             JobSpec("bfs", "grid", {"source": 0})]
+    reset_counts()
+    server, res, secs = serve(reg, specs, cfg)
+    counts = read_counts()
+    check_server("full-width server", server, res, counts)
+    for i, expect in ((0, want), (3, want_grid)):
+        if not np.array_equal(res.results[i], expect):
+            raise AssertionError(f"full-width server: job {i}'s BFS "
+                                 f"differs from scipy's")
+    if not validate_coloring(graph, torch.as_tensor(res.results[2],
+                                                    device=graph.device)):
+        raise AssertionError("full-width server: the coloring is invalid")
+    s = res.stats
+    jobs = {i: {"algorithm": t.algorithm, "graph": t.graph,
+                "latency_rounds": t.latency_rounds,
+                "rounds_active": t.rounds_active,
+                "items": t.items_processed, "occupancy": t.occupancy,
+                "work": t.work, "lane_steps": server.jobs[i].lane_steps}
+            for i, t in res.telemetry.items()}
+    levels = int(want_grid[want_grid != INF].max()) + 1
+    log(f"    full width, 4 lanes, weighted, W={cfg.wavefront}: BFS rmat "
+        f"from {source} and {second}, coloring rmat, BFS grid2d from 0; "
+        f"{s.rounds} rounds (the grid BFS alone {levels}), occupancy "
+        f"{s.occupancy:.4f}, {secs:.3f} s wall, {1e3 * secs / s.rounds:.3f} "
+        f"ms a round; BFS dist from {source} and on grid2d equal scipy's "
+        f"(the second source's below), coloring valid, no drop, no "
+        f"misrouted task; launches {counts} as the lane steps imply  "
+        f"[{card}]")
+    for i, j in jobs.items():
+        log(f"      job {i} {j['algorithm']} on {j['graph']}: latency "
+            f"{j['latency_rounds']} rounds, {j['lane_steps']} lane steps, "
+            f"{j['items']} items, occupancy {j['occupancy']:.4f}")
+
+    held = {}
+
+    def first_rounds():
+        t1 = time.perf_counter()
+        try:
+            serve(reg, specs, cfg, max_rounds=PROFILED_ROUNDS)
+        except RuntimeError as exc:
+            if f"max_rounds={PROFILED_ROUNDS}" not in str(exc):
+                raise
+        else:
+            raise AssertionError("the server finished within "
+                                 f"{PROFILED_ROUNDS} rounds")
+        held["secs"] = time.perf_counter() - t1
+
+    dev_ms, rows = device_profile(first_rounds)
+    n_ops = sum(calls for _, _, calls in rows)
+    busy = None if dev_ms is None else dev_ms / (1e3 * held["secs"])
+    log(f"    its first {PROFILED_ROUNDS} rounds under the profiler: "
+        f"{held['secs']:.3f} s wall, {dev_ms} ms device, busy share {busy}; "
+        f"{n_ops / PROFILED_ROUNDS:.1f} device ops a round; top device ops "
+        f"(ms, calls):  [{card}]")
+    for key, ms, calls in rows[:8]:
+        log(f"      {ms:10.3f} {calls:7d}  {key[:90]}")
+    return {"rounds": s.rounds, "occupancy": s.occupancy, "seconds": secs,
+            "ms_a_round": 1e3 * secs / s.rounds, "counts": counts,
+            "jobs": jobs, "second_source": second,
+            "second_dist": res.results[1],
+            "profiled": {"rounds": PROFILED_ROUNDS, "seconds": held["secs"],
+                         "device_ms": dev_ms, "busy_share": busy,
+                         "device_ops": n_ops,
+                         "device_ops_a_round": n_ops / PROFILED_ROUNDS,
+                         "rows": rows[:20]}}
+
+
+def server_small(cpu: dict, children: dict, card: str) -> dict:
+    """The reference's 8-job mix at rmat(14) and grid2d(128) under
+    ``weighted`` g1 and g4 and ``round_robin`` g1, traced, each in a child
+    process of its own on the card, bitwise against the same server run on
+    the CPU (``cpu``: the CPU children's runs by cell; results, every
+    telemetry doc, stats but wall, trace rows);
+    each run's launches those its lane steps imply; ``round_robin`` equal
+    to ``serve_sequential``, the weighted rounds below it."""
+    runs = {tag: wait_server_child(child) for tag, child in children.items()}
+    lifetimes = ", ".join(f"{tag} {run['lifetime']:.1f} s"
+                          for tag, run in runs.items())
+    log(f"    the card children: {lifetimes}")
+    graphs = next(iter(cpu.values()))["graphs"]
+    for tag, run in (*runs.items(), *cpu.items()):
+        for name, (rp, ci) in run["graphs"].items():
+            if not (np.array_equal(rp, graphs[name][0])
+                    and np.array_equal(ci, graphs[name][1])):
+                raise AssertionError(f"{tag}: the card's {name} differs "
+                                     f"from the CPU's")
+    out = {}
+    for cell in (*SERVER_CELLS, "sequential"):
+        got = runs[cell]["cells"][cell]
+        for i, tel in got["telemetry"].items():
+            if tel["dropped"] or tel["routing_mismatches"]:
+                raise AssertionError(f"small {cell}: job {i} dropped or "
+                                     f"misrouted: {tel}")
+        items = sum(t["items_processed"] for t in got["telemetry"].values())
+        if items != got["stats"]["items_processed"]:
+            raise AssertionError(f"small {cell}: jobs' items {items} != "
+                                 f"the server's")
+        out[cell] = {"rounds": got["stats"]["rounds"],
+                     "occupancy": got["occupancy"],
+                     "seconds": got["seconds"], "counts": got["counts"]}
+        if cell == "sequential":
+            continue
+        if got["counts"] != got["implied"]:
+            raise AssertionError(f"small {cell}: launches {got['counts']}, "
+                                 f"the lane steps imply {got['implied']}")
+        ref = cpu[cell]["cells"][cell]
+        if got["truncated"] or ref["truncated"]:
+            raise AssertionError(f"small {cell}: the trace ring wrapped")
+        same = (all(np.array_equal(got["results"][i], ref["results"][i])
+                    for i in ref["results"])
+                and got["telemetry"] == ref["telemetry"]
+                and got["stats"] == ref["stats"]
+                and got["records"] == ref["records"])
+        if not same:
+            raise AssertionError(f"small {cell}: the server on the card "
+                                 f"differs from the CPU's")
+        out[cell]["cpu_seconds"] = ref["seconds"]
+        out[cell]["trace_rows"] = len(got["records"])
+        log(f"    small {cell}: {got['stats']['rounds']} rounds, occupancy "
+            f"{got['occupancy']:.4f}, {got['seconds']:.3f} s on the card "
+            f"(CPU {ref['seconds']:.1f} s); results, telemetry, stats and "
+            f"{len(got['records'])} trace rows bitwise equal the CPU's; "
+            f"launches {got['counts']}  [{card}]")
+    seq = runs["sequential"]["cells"]["sequential"]
+    rr = runs["round_robin.g1"]["cells"]["round_robin.g1"]
+    fused = out["weighted.g1"]["rounds"]
+    if not all(np.array_equal(rr["results"][i], seq["results"][i])
+               for i in seq["results"]) \
+            or rr["stats"]["rounds"] != seq["stats"]["rounds"]:
+        raise AssertionError("round_robin differs from serve_sequential")
+    if not fused < seq["stats"]["rounds"]:
+        raise AssertionError(f"fused rounds {fused} not below sequential "
+                             f"{seq['stats']['rounds']}")
+    log(f"    serve_sequential: {seq['stats']['rounds']} rounds "
+        f"({seq['seconds']:.3f} s), round_robin equal to it bitwise; "
+        f"weighted g1 {fused} rounds ({fused / seq['stats']['rounds']:.3f}x)"
+        f"  [{card}]")
+    return out
+
+
+def server_stream(small: tuple, card: str) -> dict:
+    """A streaming BFS tenant (2 delta batches) beside two batch tenants
+    under ``kernel="megakernel"``: the warning is logged, the batch
+    tenants launch no drain kernel, the stream B3-slotted once a batch,
+    and its dist equals a cold drain's on the replayed graph."""
+    import logging
+
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import edge_delta_stream
+    from repro_torch.server import JobSpec
+    from repro_torch.stream import StreamSpec, replay
+
+    registry, graphs = small
+    graph = graphs["rmat"]
+    deltas = edge_delta_stream(graph, 2, 1024, seed=7)
+    specs = [JobSpec("bfs", "rmat", {"source": 0},
+                     stream=StreamSpec(deltas=tuple(deltas),
+                                       compact_every=2)),
+             JobSpec("coloring", "grid"), JobSpec("bfs", "grid", {"source": 5})]
+    cfg = SchedulerConfig(num_workers=SERVER_SMALL["workers"],
+                          fetch_size=SERVER_SMALL["fetch"],
+                          kernel="megakernel")
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    logger = logging.getLogger("repro_torch.server")
+    handler = Keep(level=logging.WARNING)
+    logger.addHandler(handler)
+    try:
+        reset_counts()
+        server, res, secs = serve(registry, specs, cfg, lanes=2)
+        counts = read_counts()
+    finally:
+        logger.removeHandler(handler)
+    if not any("megakernel" in w and "per-round" in w for w in warnings):
+        raise AssertionError(f"no megakernel warning: {warnings}")
+    batches = len(server.jobs[0].stream_result.batches)
+    check_server("stream server", server, res, counts,
+                 drains={"bfs_drain": batches})
+    cold, _, _, _ = run_algo("bfs", replay(graph, deltas),
+                             algo_config("single.persistent", workers=256),
+                             {"source": 0})
+    if not np.array_equal(res.results[0], cold.dist.cpu().numpy()):
+        raise AssertionError("the streaming tenant's dist differs from a "
+                             "cold drain's")
+    log(f"    streaming BFS tenant under kernel='megakernel': warning "
+        f"logged; {batches} batch drains, {counts['bfs_drain']} bfs_drain "
+        f"launches, none for the batch tenants; dist equals a cold drain's "
+        f"on the replayed graph; {secs:.3f} s  [{card}]")
+    return {"batches": batches, "counts": counts, "seconds": secs}
+
+
+def server_autotune(small: tuple, out_dir, card: str) -> dict:
+    """``Autotuner.tune("bfs", rmat)`` with the real runner on the card,
+    then again from its cache, measuring nothing."""
+    from repro_torch.server import Autotuner
+
+    cache = out_dir / "autotune.json"
+    cache.unlink(missing_ok=True)
+    graph = small[1]["rmat"]
+    tuner = Autotuner(cache_path=cache, warmup=0, iters=1)
+    t0 = time.perf_counter()
+    chosen = tuner.tune("bfs", graph)
+    secs = time.perf_counter() - t0
+    entry = json.loads(cache.read_text())[Autotuner.cache_key("bfs", graph)]
+    reset_counts()
+    t0 = time.perf_counter()
+    again = Autotuner(cache_path=cache).tune("bfs", graph)
+    hit_secs = time.perf_counter() - t0
+    if again != chosen or any(read_counts().values()):
+        raise AssertionError(f"the cache hit measured or differs: {again} "
+                             f"vs {chosen}, {read_counts()}")
+    if entry["cells_skipped"]:
+        raise AssertionError(f"the card skipped {entry['cells_skipped']}")
+    log(f"    autotune bfs at rmat: {entry['cells_measured']} of "
+        f"{entry['cells_total']} cells measured in {secs:.1f} s, chose "
+        f"{entry['chosen']} ({entry['trials'][entry['chosen']]:.4f} s vs "
+        f"default {entry['default_wall']:.4f} s); the second call hit the "
+        f"cache in {1e3 * hit_secs:.1f} ms, no launch  [{card}]")
+    return {"chosen": entry["chosen"], "seconds": secs,
+            "cells_measured": entry["cells_measured"],
+            "cells_total": entry["cells_total"], "hit_seconds": hit_secs}
+
+
+def start_server_cli(small_scale: int):
+    """The task-server CLI as a child process on the card."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.taskserver", "--jobs",
+           "9", "--lanes", "4", "--scale", str(small_scale), "--grid-side",
+           str(SERVER_SMALL["grid_side"]), "--workers", "256", "--fetch", "4",
+           "--compare-sequential"]
+    proc = subprocess.Popen(cmd, env=dict(os.environ,
+                                          PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, cmd, time.perf_counter()
+
+
+def wait_server_cli(started, card: str) -> dict:
+    proc, cmd, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}:\n"
+                             f"{stderr[-3000:]}")
+    lines = stdout.splitlines()
+    fused = int(next(l for l in lines if l.startswith("server: "))
+                .split("rounds=")[1].split()[0])
+    seq = int(next(l for l in lines if l.startswith("sequential: "))
+              .split("rounds=")[1].split()[0])
+    if not fused < seq:
+        raise AssertionError(f"the CLI's fused rounds {fused} not below its "
+                             f"sequential rounds {seq}")
+    log(f"    CLI `{' '.join(cmd[1:])}`: exit 0 in {secs:.1f} s, fused "
+        f"{fused} rounds vs sequential {seq}  [{card}]")
+    for line in lines[-4:]:
+        log(f"      {line}")
+    return {"rounds": fused, "sequential_rounds": seq, "seconds": secs,
+            "stdout": stdout}
+
+
+def server_path(graph, grid, source: int, want, want_grid,
+                cpu_children: dict, out_dir, card: str,
+                small_scale: int) -> dict:
+    """Phase 4h: the multi-tenant task server on the card.  It first waits
+    for the CPU children (the small cells' reference, started after [2]),
+    so the full-width run and its profile run alone; then the small cells
+    run in child processes on the card (one a cell, and
+    ``serve_sequential``) beside the CLI's, while this process checks the
+    second BFS source against scipy and runs the streaming tenant and the
+    autotuner (whose trials therefore share the card and the host)."""
+    t0 = time.perf_counter()
+    cpu = {cell: wait_server_child(child)
+           for cell, child in cpu_children.items()}
+    log("    the CPU children ran " + ", ".join(
+        f"{cell} {run['ran']:.1f} s" for cell, run in cpu.items())
+        + f"; [4h] waited {time.perf_counter() - t0:.1f} s for them")
+    full = server_full_width(graph, grid, source, want, want_grid, card)
+    children = {}
+    for cell in (*SERVER_CELLS, "sequential"):
+        children[cell] = start_server_child(small_scale, "cuda", [cell],
+                                            cell)
+    cli = start_server_cli(small_scale)
+    t1 = time.perf_counter()
+    want_second = host_bfs(graph, full["second_source"])
+    if not np.array_equal(full.pop("second_dist"), want_second):
+        raise AssertionError("full-width server: the second source's BFS "
+                             "differs from scipy's")
+    log(f"    the second source's dist equals scipy's "
+        f"({time.perf_counter() - t1:.1f} s of scipy)")
+    out = {"full": full}
+    small = small_registry(small_scale, "cuda")
+    out["stream"] = server_stream(small, card)
+    out["autotune"] = server_autotune(small, out_dir, card)
+    out["small"] = server_small(cpu, children, card)
+    out["cli"] = wait_server_cli(cli, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    [4h] took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 # ------------------------------------------------------ B5, phases 3 and 6
 # (label, B, H, KVH, Sq, Skv, D, dtype, causal, window); the first is the
 # LM path's per-layer shape (minitron-4b prefill, B=2 x T=4096)
@@ -3209,6 +3784,11 @@ def main() -> int:
         log(f"  ptxas report for csrc/{name}.cu:")
         for line in report.strip().splitlines():
             log(f"    {line}")
+    # the small task-server cells run on the CPU meanwhile, a child process
+    # (one thread) a cell; [4h] waits for them before it measures anything
+    cpu_children = {cell: start_server_child(min(args.scale, 14), "cpu",
+                                             [cell], f"cpu.{cell}")
+                    for cell in SERVER_CELLS}
     sass = flash_sass()
     log(f"  B5 (csrc/flash_attention.cu) SASS: "
         + ", ".join(f"{op} {n}" for op, n in sass.items()))
@@ -3281,9 +3861,17 @@ def main() -> int:
     grid = grid2d(side, side, device="cuda")
     cfg_g4 = config_for(SchedulerConfig(num_workers=1024, fetch_size=4),
                         parse_policy("single.persistent.g4"))
+    # through drain_setup, so that [4e] holds its g4 megakernel drain
+    # against this drain's final queue without running it again
     reset_counts()
-    state_g, _, info_g, secs_g = drain(grid, cfg_g4, 0)
+    carry_g, secs_g = drive("bfs", grid, cfg_g4, {"source": 0})
     counts_g = read_counts()
+    state_g = carry_g[1]
+    info_g = {"rounds": int(carry_g[2]),
+              "work": int(state_g.counter.work),
+              "dropped": int(carry_g[0].dropped),
+              "splits": int(state_g.counter.splits),
+              "launches": int(carry_g[2])}
     if info_g["dropped"] != 0 or min(counts_g["lbs"],
                                      counts_g["compact"]) <= 0:
         raise AssertionError(f"grid g4 run: {info_g} {counts_g}")
@@ -3309,7 +3897,7 @@ def main() -> int:
         f"g1/g4, PageRank g4, coloring g4 on rmat({args.scale}) and "
         f"grid2d({side},{side}), each one launch of its drain kernel")
     wide = {"bfs": wide_bfs(graph, grid, source, want, want_grid, card,
-                            min(args.scale, 14)),
+                            min(args.scale, 14), (carry_g, secs_g)),
             "pagerank": wide_pagerank(graph, grid, card,
                                       min(args.scale, 14)),
             "coloring": wide_coloring(graph, card, min(args.scale, 14))}
@@ -3327,6 +3915,13 @@ def main() -> int:
         f", BFS, PageRank and coloring, each megakernel batch drain one "
         f"launch of its drain kernel's slotted mode")
     stream = streaming_path(graph, source, card, min(args.scale, 14))
+    log(f"[4h] the task server: BFS x2, coloring on rmat({args.scale}) and "
+        f"BFS on grid2d({side},{side}) fused in 4 lanes (B1, B2 a lane "
+        f"step); the 8-job mix at rmat({min(args.scale, 14)}) on the card "
+        f"against the CPU; a streaming tenant (B3-slotted), the autotuner, "
+        f"the CLI")
+    server = server_path(graph, grid, source, want, want_grid, cpu_children,
+                         out_dir, card, min(args.scale, 14))
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -3868,6 +4463,24 @@ def main() -> int:
             "drain_timed_by": None if whole is None else whole["timed_by"],
             "shape": f"rmat({args.scale}) after one delta batch, overlay "
                      f"{stream['overlay']} entries, W={cfg.wavefront}, g1"})
+    # the task server's launches ([4h]): the full-width run, the small
+    # cells on the card, the streaming tenant's batch drains
+    full_counts = server["full"]["counts"]
+    small_counts = {cell: c["counts"] for cell, c in server["small"].items()
+                    if cell != "sequential"}
+    for kern in kernels:
+        name = kern["name"]
+        if name in ("lbs", "compact", "ordered_scatter_add"):
+            kern["server_launches"] = {
+                "full_width": full_counts[name],
+                **{f"small {cell}": c[name]
+                   for cell, c in small_counts.items()}}
+        elif name == "bfs_drain.slotted":
+            kern["server_launches"] = {
+                "streaming tenant": server["stream"]["counts"]["bfs_drain"]}
+    for name in ("lbs", "compact"):
+        if not full_counts[name]:
+            raise AssertionError(f"the full-width server launched no {name}")
     timed_alone = ("lbs", "compact", "csr_stream", "csr_stream.slotted",
                    "ordered_scatter_add", "ordered_scatter_add.f64")
     for kern in (k for k in kernels if k["name"] in timed_alone):
@@ -3916,6 +4529,7 @@ def main() -> int:
         "wide": wide,
         "fused_traced": fused,
         "streaming": stream,
+        "server": server,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started
@@ -3931,4 +4545,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    sys.exit(rc)

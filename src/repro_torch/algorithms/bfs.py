@@ -230,6 +230,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         default_queue_capacity=queue_capacity or max(4 * n, 1024),
         make_drain_kernel=make_drain_kernel,
         dirty_seeds=dirty_seeds,
+        task_width=codec.width,
     )
 
 

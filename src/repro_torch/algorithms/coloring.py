@@ -307,6 +307,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         default_queue_capacity=queue_capacity or max(4 * n, 1024),
         make_drain_kernel=make_drain_kernel,
         dirty_seeds=conflict_seeds if dirty == "conflicts" else None,
+        # a task is a signed +-(code + 1)
+        task_width=lambda t: codec.width(t.to(_I32).abs() - 1),
     )
 
 

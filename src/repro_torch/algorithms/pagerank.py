@@ -330,6 +330,7 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         default_queue_capacity=capacity,
         make_drain_kernel=make_drain_kernel,
         dirty_seeds=dirty_seeds,
+        task_width=codec.width,
     )
 
 

@@ -12,7 +12,7 @@ from .frontier import (Expansion, adjacency_of, chunk_degrees, chunk_row_of,
                        searchsorted_right)
 from .task import (MAX_GRANULARITY, ChunkCodec, chunk_seeds, coalesce_chunks,
                    flatten_chunks)
-from .counters import WorkCounter, overwork_ratio
+from .counters import JobTelemetry, WorkCounter, overwork_ratio
 
 __all__ = [
     "BACKENDS", "STREAM", "STREAM_TORCH", "has_cuda", "resolve_backend",
@@ -27,5 +27,5 @@ __all__ = [
     "searchsorted_right",
     "MAX_GRANULARITY", "ChunkCodec", "chunk_seeds", "coalesce_chunks",
     "flatten_chunks",
-    "WorkCounter", "overwork_ratio",
+    "JobTelemetry", "WorkCounter", "overwork_ratio",
 ]

@@ -98,14 +98,18 @@ def _bump_rounds(state):
         state, is_leaf=lambda x: isinstance(x, WorkCounter))
 
 
-def wavefront_step(f: WavefrontFn, on_empty, ops: QueueOps, carry):
+def wavefront_step(f: WavefrontFn, on_empty, ops: QueueOps, carry,
+                   *, always_run_body: bool = False):
     """One scheduling round, generic over the queue implementation.
 
     ``carry = (queue, state, rounds, processed)``.  When the pop yields no
     valid item the body's result is discarded and ``on_empty`` (if any)
     runs instead.  The reference branches with ``jax.lax.cond``; here both
     branches run and the device flag selects, so the round never waits
-    for the host.
+    for the host.  ``always_run_body`` keeps the body's state and push
+    even on a zero-valid wavefront, and ``on_empty`` is not consulted (the
+    task server's lane step: PageRank's in-body rescan must tick on an
+    empty pop).
     """
     queue, state, rounds, processed = carry
     items, valid, queue = ops.pop(queue)
@@ -113,6 +117,9 @@ def wavefront_step(f: WavefrontFn, on_empty, ops: QueueOps, carry):
 
     out, mask, s_body = f(items, valid, state)
     q_body = ops.push(queue, out, mask)
+    if always_run_body:
+        return (q_body, _bump_rounds(s_body), rounds + 1,
+                processed + n_valid)
     if on_empty is None:
         q_empty, s_empty = queue, state
     else:

@@ -132,38 +132,48 @@ def chunk_seeds(vids, codec: ChunkCodec, row_ptr, *,
 
     Emits maximal chunks of consecutive ids bounded by the codec width and
     the degree-sum ``split_threshold``; returns the encoded int32 chunk
-    array, every entry valid.
+    array, every entry valid.  The reference walks the ids one at a time;
+    here each position's chunk length is found at once (the end of its run
+    of consecutive ids, ``G``, and a ``searchsorted`` of ``row_ptr`` for the
+    threshold), and the chain of chunk heads from position 0 is walked by
+    pointer doubling, so the work is O(k log k) in numpy with no Python
+    loop over the ids.
     """
     vids = np.asarray(vids, dtype=np.int64)
     g = codec.granularity
-    if g == 1 or vids.size == 0:
+    k = vids.size
+    if g == 1 or k == 0:
         return vids.astype(np.int32)
     if isinstance(row_ptr, torch.Tensor):
         row_ptr = row_ptr.cpu().numpy()
     rp = np.asarray(row_ptr, dtype=np.int64)
-    chunks = []
-    head = int(vids[0])
-    width = 1
-
-    def flush():
-        chunks.append((head << codec.width_bits)
-                      | ((width - 1) & codec.width_mask))
-
-    for v in vids[1:]:
-        v = int(v)
-        extends = (
-            v == head + width
-            and width < g
-            and (split_threshold is None
-                 or rp[v + 1] - rp[head] <= split_threshold)
-        )
-        if extends:
-            width += 1
-        else:
-            flush()
-            head, width = v, 1
-    flush()
-    return np.asarray(chunks, dtype=np.int32)
+    pos = np.arange(k, dtype=np.int64)
+    # run_end[i]: one past the last position of the run of consecutive ids
+    # (vids[p] == vids[p - 1] + 1) that position i lies in
+    breaks = np.flatnonzero(np.diff(vids) != 1) + 1
+    run_end = np.append(breaks, k)[np.searchsorted(breaks, pos,
+                                                   side="right")]
+    length = np.minimum(run_end - pos, g)
+    if split_threshold is not None:
+        # the chunk from head h may take v = h + j (j >= 1) while
+        # rp[v + 1] - rp[h] <= threshold; rp is monotone, so the first
+        # failing v is one before the first index past rp[h] + threshold
+        past = np.searchsorted(rp, rp[vids] + split_threshold, side="right")
+        length = np.minimum(length, np.maximum(past - 1 - vids, 1))
+    # heads: the chain 0 -> nxt[0] -> ... (k is the end sentinel), marked
+    # by doubling the jump nxt^(2^r) while marking its targets
+    jump = np.append(pos + length, k)
+    on = np.zeros(k + 1, dtype=bool)
+    on[0] = True
+    while True:
+        marked = np.flatnonzero(on)
+        on[jump[marked]] = True
+        if jump[0] == k:
+            break
+        jump = jump[jump]
+    heads = np.flatnonzero(on[:k])
+    return ((vids[heads] << codec.width_bits)
+            | ((length[heads] - 1) & codec.width_mask)).astype(np.int32)
 
 
 def flatten_chunks(heads: torch.Tensor, widths: torch.Tensor,

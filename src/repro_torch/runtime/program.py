@@ -14,10 +14,12 @@ packages one application's drain:
                               -> optional CUDA drain kernel for the
                                  megakernel strategy (the port's own field)
 
+    task_width(task)          -> chunk width (the task server's
+                                 vertex-denominated quotas and loads)
+
 The reference's replica-merge spec and ``task_vertex`` come with the
-sharded slice, ``task_width`` (the server's vertex quota) with the task
-server.  The fused topology needs neither: its lane packs whatever the
-body consumes.
+sharded slice.  The fused topology needs neither: its lane packs whatever
+the body consumes.
 """
 from __future__ import annotations
 
@@ -25,6 +27,11 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+
+def unit_task_width(items: torch.Tensor) -> torch.Tensor:
+    """Default ``task_width``: every task is one vertex wide (G = 1)."""
+    return torch.ones_like(items, dtype=torch.int32)
 
 
 class ProgramContext(NamedTuple):
@@ -66,6 +73,9 @@ class AtosProgram:
     #: drain's final state).  None: the stream driver re-seeds in full
     #: through ``init()``.
     dirty_seeds: Optional[Callable[[Any, Any], Tuple[Any, Any]]] = None
+    #: natural task -> chunk width: feeds the task server's
+    #: vertex-denominated lane loads and pop quotas at granularity > 1
+    task_width: Callable[[torch.Tensor], torch.Tensor] = unit_task_width
 
     def body(self, graph, ctx: ProgramContext):
         return self.make_body(graph, ctx)

@@ -46,8 +46,8 @@ from .snapshot import SnapshotManager, graph_fingerprint
 
 @dataclasses.dataclass(frozen=True)
 class StreamSpec:
-    """Streaming attachment for a server job (the reference's
-    ``server/jobs.JobSpec(stream=...)``; the task server comes with A11)."""
+    """Streaming attachment for a task-server job
+    (``server/jobs.JobSpec(stream=...)``)."""
 
     deltas: Tuple[EdgeDelta, ...]
     incremental: bool = True
@@ -167,6 +167,7 @@ def run_stream(
     trace: Optional[Trace] = None,
     compact_every: int = 0,
     overlay_slack: float = 0.25,
+    trace_engine: Optional[str] = None,
 ) -> StreamResult:
     """Run ``algorithm`` over ``graph`` and a delta log, batch by batch, on
     the graph's device.
@@ -177,7 +178,8 @@ def run_stream(
     before the restored snapshot are not re-synthesized; the final state
     and result are bit-identical to an uninterrupted run.  ``trace``
     threads a fresh ring through every batch's drain (snapshots never see
-    it), drains each under the engine ``stream.<algorithm>`` at absolute,
+    it), drains each under the engine ``trace_engine`` (default
+    ``stream.<algorithm>``; the task server names its job) at absolute,
     cross-batch round numbers, and registers the ``stream`` summary doc at
     the end.
     """
@@ -282,7 +284,7 @@ def run_stream(
                 snapshot_hook(t, b)
 
         every = snapshot_every if snap is not None else 0
-        engine = f"stream.{algorithm}"
+        engine = trace_engine or f"stream.{algorithm}"
         # cross-batch round offset: batches tile one absolute timeline
         batch_offset = totals["rounds"]
         r0 = restored[1] if restored is not None else 0

@@ -10,9 +10,11 @@ card against the CPU, B3-pr's ordered sum on a hub graph past a block's
 sort, B3-BFS where its design bends (a backlog past W, resumed segments,
 a ring that drops, hubs whose round takes two tiles a block, a wavefront
 in global scratch; every mode at G = 1, 2, 4, 64 and per_item), the drain
-kernels' grid barrier alone (10^5 checked rounds), and the
+kernels' grid barrier alone (10^5 checked rounds), the
 flash-attention kernel B5 (its tensor-core and CUDA-core instances)
-against ``attention_ref`` within its stated tolerance.
+against ``attention_ref`` within its stated tolerance, and the task
+server's 8-job mix on the card against the same server on the CPU, with
+the B1/B2 launches its lane steps imply.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -1542,3 +1544,95 @@ def test_lm_prefill_goes_through_b5_and_matches_the_plain_path():
     for t in range(8):
         logits, cache = T.decode_step(params, cfg, cache, toks[:, t:t + 1])
         torch.testing.assert_close(logits, want[:, t], atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------- the task server (A11)
+SERVER_MIX = [("bfs", "grid", {"source": 0}, 1.0),
+              ("bfs", "rmat", {"source": 3}, 1.0),
+              ("pagerank", "grid", {"eps": 1e-6}, 1.0),
+              ("coloring", "rmat", {}, 1.0),
+              ("bfs", "grid", {"source": 17}, 2.0),
+              ("coloring", "grid", {}, 1.0),
+              ("pagerank", "rmat", {"eps": 1e-6}, 1.0),
+              ("bfs", "rmat", {"source": 9}, 1.0)]
+#: B1 launches of one lane step of each program's body
+B1_PER_STEP = {"bfs": 1, "pagerank": 1, "coloring": 3}
+
+
+def _serve_mix(device, policy, g, trace=None):
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import grid2d, rmat
+    from repro_torch.server import JobRegistry, JobSpec, TaskServer
+
+    reg = JobRegistry()
+    reg.register_graph("rmat", rmat(9, edge_factor=8, seed=1, device=device))
+    reg.register_graph("grid", grid2d(24, 24, device=device))
+    server = TaskServer(reg, num_lanes=8, policy=policy, trace=trace,
+                        device=device, config=SchedulerConfig(
+                            num_workers=64, fetch_size=2, granularity=g))
+    for a, gname, params, w in SERVER_MIX:
+        server.submit(JobSpec(a, gname, dict(params), weight=w))
+    return server, server.run()
+
+
+def _server_wrappers():
+    from repro_torch.kernels.drain_loop.bfs_drain import bfs_drain_cuda
+    from repro_torch.kernels.drain_loop.coloring_drain import (
+        coloring_drain_cuda)
+    from repro_torch.kernels.drain_loop.pagerank_drain import (
+        pagerank_drain_cuda)
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+    from repro_torch.kernels.scatter_add.kernel import (
+        ordered_scatter_add_cuda)
+
+    return {"lbs": lbs_cuda, "compact": compact_cuda,
+            "ordered_scatter_add": ordered_scatter_add_cuda,
+            "bfs_drain": bfs_drain_cuda, "pagerank_drain": pagerank_drain_cuda,
+            "coloring_drain": coloring_drain_cuda}
+
+
+@pytest.mark.parametrize("policy,g", [("weighted", 1), ("weighted", 4),
+                                      ("round_robin", 1)])
+def test_server_mix_on_the_card_equals_the_cpu(policy, g):
+    """The reference's 8-job mix (PageRank at eps 1e-6) through the
+    kernels on the card, traced, bitwise equal to the same server on the
+    CPU: results, every telemetry field, stats but wall, trace rows."""
+    _require_cuda()
+    import dataclasses
+
+    from repro_torch.obs import Trace
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        trace = Trace()
+        _, res = _serve_mix(device, policy, g, trace=trace)
+        stats = dataclasses.asdict(res.stats)
+        stats.pop("wall_seconds")
+        runs[device] = (res, stats, trace.records)
+    (cres, cstats, crows), (kres, kstats, krows) = runs["cpu"], runs["cuda"]
+    for i in cres.results:
+        np.testing.assert_array_equal(kres.results[i], cres.results[i])
+        assert kres.telemetry[i].as_dict() == cres.telemetry[i].as_dict()
+    assert kstats == cstats and krows == crows
+
+
+def test_server_lane_steps_launch_b1_and_b2():
+    """Each lane step launches its body's B1 searches and one B2 push
+    (PageRank's also the ordered scatter-add); each seed push and on_empty
+    refill one B2; no drain kernel."""
+    _require_cuda()
+    wrappers = _server_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    server, _ = _serve_mix("cuda", "weighted", 1)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    jobs = server.jobs
+    assert counts == {
+        "lbs": sum(B1_PER_STEP[j.program.algorithm] * j.lane_steps
+                   for j in jobs),
+        "compact": sum(j.lane_steps + j.empty_steps + 1 for j in jobs),
+        "ordered_scatter_add": sum(j.lane_steps for j in jobs
+                                   if j.program.algorithm == "pagerank"),
+        "bfs_drain": 0, "pagerank_drain": 0, "coloring_drain": 0}
+    assert counts["lbs"] > 0 and counts["compact"] > 0

@@ -50,6 +50,26 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _cpu_graph_on_a_default_server():
+    from repro_torch.server import JobRegistry, TaskServer
+
+    reg = JobRegistry()
+    reg.register_graph("g", tg.grid2d(3, 3, device="cpu"))
+    return TaskServer(reg)
+
+
+def _taskserver_cli_default_device():
+    from repro_torch.launch.taskserver import main
+
+    main(["--scale", "4", "--grid-side", "4"])
+
+
+def _default_task_server():
+    from repro_torch.server import JobRegistry, TaskServer
+
+    return TaskServer(JobRegistry())
+
+
 @pytest.mark.parametrize("entry", [
     lambda: tg.rmat(4),
     lambda: tg.grid2d(3, 3),
@@ -58,6 +78,9 @@ def no_cuda(monkeypatch):
     lambda: make_queue(8),
     lambda: graph_from_numpy(np.array([0, 1, 1]), np.array([1])),
     lambda: tg.grid2d(3, 3, device="cpu").to("cuda"),
+    _default_task_server,
+    _cpu_graph_on_a_default_server,
+    _taskserver_cli_default_device,
 ])
 def test_default_device_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
