@@ -138,6 +138,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      real runner, then a cache hit that measures nothing; the CLI
      ``python -m repro_torch.launch.taskserver`` as a child process on the
      card, exit 0, fused rounds below sequential;
+  4i. the sharded topology (ROADMAP A12), four shards on one card
+     (``devices=[cuda:0] * 4``) through ``execute(..., mesh=...)``: BFS
+     from 4's source under ``sharded.persistent`` on a 1-D strict mesh and
+     on a 2x2 mesh with deferred delivery, the codec and stealing, dist
+     equal to 4's single drain, nothing mis-routed or dropped, something
+     donated, the B1 and B2 launches those the predicated steps imply,
+     each drain under the profiler (device ops a step, busy share);
+     PageRank and coloring on the 1-D mesh over their first 64 rounds
+     (launches as implied), PageRank's first 16 rounds bitwise equal to
+     the same cell run on the CPU (a child process started after 2),
+     coloring's first 16 to the same cell on the plain backend on the
+     card; at
+     rmat(14) BFS (2x2 with deferred delivery and stealing, under
+     ``sharded.discrete``), PageRank and coloring (1-D, persistent)
+     drained whole, bitwise equal to the CPU child's runs (state,
+     RunStats, info);
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events; B1 also at coloring's
@@ -3270,6 +3286,330 @@ def server_path(graph, grid, source: int, want, want_grid,
     return out
 
 
+# ------------------------------- phase 4i: the sharded topology (A12)
+SHARD_W = {"workers": 1024, "fetch": 4}        # W = 4096 a shard, as [4]
+#: the two full-width meshes: four shards on one card, 1-D and strict; and
+#: 2x2 with deferred delivery, the codec and stealing
+SHARD_CELLS = {
+    "s4": {"num_shards": 4},
+    "2x2": {"num_shards": 4, "mesh_shape": (2, 2), "defer_rounds": 1,
+            "compress": True, "steal_threshold": 0.5},
+    "2x2-raw": {"num_shards": 4, "mesh_shape": (2, 2), "defer_rounds": 1,
+                "steal_threshold": 0.5},
+}
+SHARD_FIRST_ROUNDS = 64                 # full-width PageRank and coloring
+#: whole drains at the small scale, on the card against the CPU child:
+#: (algorithm, cell, kernel strategy); the CPU runs the codec and the
+#: shards' bodies slowly, so one cell an algorithm
+SHARD_SMALL_CELLS = [("bfs", "2x2-raw", "discrete"),
+                     ("pagerank", "s4", "persistent"),
+                     ("coloring", "s4", "persistent")]
+#: B2 launches a shard a predicated step: the local push and the delivered
+#: push (strict), or the staged push and the local push (deferred; none in
+#: the first round, one flush at the end), and the steal push
+_SHARD_CHILD = """
+import os, sys
+sys.path.insert(0, os.environ["REPO"])
+import chip_smoke
+chip_smoke.shard_child()
+"""
+
+
+def shard_config(cell: str, kernel: str = "persistent", **kw):
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.runtime import config_for, parse_policy
+
+    return config_for(SchedulerConfig(num_workers=SHARD_W["workers"],
+                                      fetch_size=SHARD_W["fetch"],
+                                      **SHARD_CELLS[cell], **kw),
+                      parse_policy(f"sharded.{kernel}"))
+
+
+def shard_mesh(cfg, device):
+    from repro_torch.launch.mesh import make_shard_mesh, make_shard_mesh2d
+
+    devices = [torch.device(device)] * cfg.num_shards
+    if cfg.mesh_shape is None:
+        return make_shard_mesh(cfg.num_shards, devices=devices)
+    return make_shard_mesh2d(*cfg.mesh_shape, devices=devices)
+
+
+def shard_params(algo: str, source: int):
+    return ({"source": source} if algo == "bfs" else
+            dict(PR_PARAMS) if algo == "pagerank" else {})
+
+
+def shard_run(algo: str, graph, cfg, source: int, device) -> tuple:
+    """One sharded drain through ``execute`` on a mesh of four shards on
+    ``device``: ``(state, RunStats, info, seconds)``."""
+    from repro_torch.runtime import build_program, execute
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats, info = execute(
+        build_program(algo, graph, cfg, params=shard_params(algo, source)),
+        graph, cfg, mesh=shard_mesh(cfg, device))
+    if on_card:
+        torch.cuda.synchronize()
+    return state, stats, info, time.perf_counter() - t0
+
+
+def host_outcome(state, stats, info) -> dict:
+    """What the card's run is held against: the state's leaves, RunStats
+    and info, on the host."""
+    return {"leaves": [x.cpu() for x in leaves(state)],
+            "stats": [int(x) for x in stats], "info": info}
+
+
+def shard_child() -> None:
+    """The body of a CPU child (``SHARD_CHILD`` names its part): ``full``,
+    the full-width PageRank on the 1-D mesh over its first
+    ``HOST_ROUNDS``; ``small``, each ``SHARD_SMALL_CELLS`` drain whole;
+    pickled for [4i].  (The CPU expands coloring's flat budget, 17.5 M
+    units a shard body at rmat(21), in seconds: the full-width coloring is
+    held against the plain backend on the card instead, as [4d] holds
+    its persistent drain.)"""
+    import os
+    import pickle
+
+    started = time.perf_counter()
+    spec = json.loads(os.environ["SHARD_CHILD"])
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.graph import rmat
+
+    out = {}
+    graph = rmat(spec["scale"], edge_factor=16, seed=1, device="cpu")
+    if spec["part"] == "full":
+        cfg = shard_config("s4", max_rounds=HOST_ROUNDS)
+        out["pagerank"] = host_outcome(*shard_run("pagerank", graph, cfg, 0,
+                                                  "cpu")[:3])
+    else:
+        source = int(torch.argmax(graph.degrees()))
+        for algo, cell, kernel in SHARD_SMALL_CELLS:
+            out[f"{algo}.{cell}"] = host_outcome(*shard_run(
+                algo, graph, shard_config(cell, kernel), source, "cpu")[:3])
+    out["ran"] = time.perf_counter() - started
+    with open(spec["out"] + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(spec["out"] + ".tmp", spec["out"])
+
+
+def start_shard_child(part: str, scale: int) -> dict:
+    """Start ``shard_child`` on the CPU (it sees no card; one thread, as
+    the server's CPU children, so the host-bound phases keep their
+    cores)."""
+    import os
+
+    path = ROOT / "build" / f"chip_smoke_shard_{part}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, REPO=str(ROOT), CUDA_VISIBLE_DEVICES="",
+               SHARD_CHILD=json.dumps({"part": part, "scale": scale,
+                                       "out": str(path)}))
+    logfile = open(path.with_suffix(".log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", _SHARD_CHILD], env=env,
+                            stdout=logfile, stderr=subprocess.STDOUT)
+    logfile.close()
+    CHILDREN.append(proc)
+    return {"proc": proc, "path": path, "tag": f"shard.{part}",
+            "started": time.perf_counter()}
+
+
+def same_outcome(label: str, got: dict, want: dict) -> None:
+    if len(got["leaves"]) != len(want["leaves"]) or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got["leaves"], want["leaves"])):
+        raise AssertionError(f"{label}: the state differs from the CPU's")
+    if got["stats"] != want["stats"] or got["info"] != want["info"]:
+        raise AssertionError(f"{label}: stats differ from the CPU's: "
+                             f"{got['stats']} {got['info']} vs "
+                             f"{want['stats']} {want['info']}")
+
+
+def shard_launches(algo: str, cell: str, steps: int) -> dict:
+    """The launches a persistent sharded drain of ``steps`` predicated
+    steps implies on four shards: B1 a body (three for coloring's flat
+    gathers), the ordered scatter-add a PageRank body, and B2 two pushes a
+    shard a step plus the steal push when stealing (a deferred cell has no
+    staged push in its first step and one flush at the end)."""
+    s = SHARD_CELLS[cell]["num_shards"]
+    pushes = 2 + (SHARD_CELLS[cell].get("steal_threshold", 0) > 0)
+    counts = {"lbs": s * steps * (3 if algo == "coloring" else 1),
+              "compact": s * steps * pushes}
+    if algo == "pagerank":
+        counts["ordered_scatter_add"] = s * steps
+    return only(**counts)
+
+
+def sharded_bfs(graph, source: int, dist, cell: str, card: str) -> dict:
+    """One full-width sharded BFS: launches, dist, meters and wall; then
+    its first ``POLL_EVERY`` steps (one poll window) again under the
+    profiler for device ops a step and busy share (the profiler's cost
+    grows with the ops it records, and a whole drain records hundreds of
+    thousands)."""
+    from repro_torch.core.scheduler import POLL_EVERY
+
+    cfg = shard_config(cell)
+    reset_counts()
+    state, stats, info, secs = shard_run("bfs", graph, cfg, source, "cuda")
+    counts = read_counts()
+    steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
+    if not torch.equal(state.dist, dist):
+        bad = int((state.dist != dist).sum())
+        raise AssertionError(f"sharded BFS {cell}: dist differs from [4]'s "
+                             f"single drain at {bad} vertices")
+    if info["mis_routed"] or info["dropped"]:
+        raise AssertionError(f"sharded BFS {cell}: mis_routed "
+                             f"{info['mis_routed']}, dropped "
+                             f"{info['dropped']} (route drops included)")
+    if SHARD_CELLS[cell].get("steal_threshold") and not info["donated"]:
+        raise AssertionError(f"sharded BFS {cell}: stealing donated nothing")
+    implied = shard_launches("bfs", cell, steps)
+    if counts != implied:
+        raise AssertionError(f"sharded BFS {cell}: launches {counts}, the "
+                             f"{steps} predicated steps imply {implied}")
+    window = {}
+    cut = shard_config(cell, max_rounds=POLL_EVERY)
+
+    def first_window():
+        window["secs"] = shard_run("bfs", graph, cut, source, "cuda")[3]
+
+    dev_ms, rows = device_profile(first_window)
+    ops = sum(calls for _, _, calls in rows) / POLL_EVERY
+    busy = None if dev_ms is None else dev_ms / (1e3 * window["secs"])
+    log(f"    BFS sharded.persistent {cell} ({cfg.mesh_shape or '1-D'}, "
+        f"defer {cfg.defer_rounds}, compress {cfg.compress}, steal "
+        f"{cfg.steal_threshold}): dist equals [4]'s; rounds "
+        f"{info['rounds']}, exchanged {info['exchanged']} (row "
+        f"{info['exchanged_row']}, col {info['exchanged_col']}), donated "
+        f"{info['donated']}, wire {info['wire_ints']} ints (payload "
+        f"{info['payload_ints']}, padding {info['padding_ints']}), deferred "
+        f"{info['deferred']}, balance {info['occupancy_balance']:.3f}; "
+        f"launches {counts} as {steps} steps imply; wall {secs:.3f} s "
+        f"({1e3 * secs / steps:.2f} ms a step); the first {POLL_EVERY} "
+        f"steps under the profiler: {ops:.1f} device ops a step, busy "
+        f"{busy if busy is None else round(busy, 3)}  [{card}]")
+    for name, ms, calls in rows[:6]:
+        log(f"      {ms:10.3f} ms {calls:7d}  {name[:90]}")
+    return {"info": info, "launches": counts, "steps": steps,
+            "seconds": secs, "window_seconds": window["secs"],
+            "window_device_ms": dev_ms, "device_ops_a_step": ops,
+            "busy": busy, "rows": rows[:12]}
+
+
+def sharded_first_rounds(algo: str, graph, source: int, card: str,
+                         want: dict) -> dict:
+    """PageRank or coloring on the 1-D mesh at full width, cut at
+    ``SHARD_FIRST_ROUNDS``: the launches its steps imply, nothing
+    mis-routed or dropped; its first rounds bitwise equal to ``want``
+    (``{"rounds": r, "outcome": ...}``).  (Every shard is seeded with its
+    whole block, so no occupancy skew arises early to steal from.)"""
+    cut = want["rounds"]
+    if cut != SHARD_FIRST_ROUNDS:
+        got = host_outcome(*shard_run(algo, graph, shard_config(
+            "s4", max_rounds=cut), source, "cuda")[:3])
+        same_outcome(f"{algo} s4, first {cut} rounds", got,
+                     want["outcome"])
+    reset_counts()
+    state, stats, info, secs = shard_run(
+        algo, graph, shard_config("s4", max_rounds=SHARD_FIRST_ROUNDS),
+        source, "cuda")
+    counts = read_counts()
+    if cut == SHARD_FIRST_ROUNDS:
+        same_outcome(f"{algo} s4, first {cut} rounds",
+                     host_outcome(state, stats, info), want["outcome"])
+    implied = shard_launches(algo, "s4", SHARD_FIRST_ROUNDS)
+    if counts != implied or info["rounds"] != SHARD_FIRST_ROUNDS:
+        raise AssertionError(f"sharded {algo}: rounds {info['rounds']}, "
+                             f"launches {counts}, implied {implied}")
+    if info["mis_routed"] or info["dropped"]:
+        raise AssertionError(f"sharded {algo}: {info}")
+    log(f"    {algo} sharded.persistent s4 at full width: the first {cut} "
+        f"rounds equal {want['held_against']} bit for bit (state, RunStats, "
+        f"info); {SHARD_FIRST_ROUNDS} rounds: exchanged "
+        f"{info['exchanged']}, donated {info['donated']}, wire "
+        f"{info['wire_ints']}, launches {counts} as implied; wall "
+        f"{secs:.3f} s ({1e3 * secs / SHARD_FIRST_ROUNDS:.2f} ms a round)"
+        f"  [{card}]")
+    return {"info": info, "launches": counts, "seconds": secs,
+            "held_rounds": cut, "held_against": want["held_against"]}
+
+
+def sharded_path(graph, source: int, dist, children: dict, card: str,
+                 small_scale: int) -> dict:
+    """Phase 4i: the sharded topology on four shards of one card (ROADMAP
+    A12).  BFS from [4]'s source on the 1-D strict mesh and on the 2x2
+    deferred, compressed, stealing mesh, its dist [4]'s; PageRank and
+    coloring on the 1-D mesh over their first rounds (PageRank's first
+    ``HOST_ROUNDS`` against the CPU child, coloring's against the plain
+    backend on the card); every ``SHARD_SMALL_CELLS`` drain whole at
+    ``small_scale`` against the CPU child."""
+    from repro_torch.graph import rmat
+    from repro_torch.shard import block_bounds
+
+    t_start = time.perf_counter()
+    # the edges each shard's col_idx holds, from row_ptr (partition_graph
+    # cuts the same slices)
+    rp = graph.row_ptr.cpu().numpy()
+    n = graph.num_vertices
+    own = [int(rp[hi] - rp[lo])
+           for lo, hi in (block_bounds(d, n, 4) for d in range(4))]
+    stored = {"no halo": own,
+              "halo": [own[d] + own[(d - 1) % 4] for d in range(4)]}
+    log(f"    the partition's col_idx, edges a shard: {stored} (int32; "
+        f"the widest with the halo {4 * max(stored['halo']) / 2**20:.1f} "
+        f"MiB, all {4 * sum(stored['halo']) / 2**20:.1f} MiB)")
+    out = {"edges_stored": stored,
+           "bfs": {cell: sharded_bfs(graph, source, dist, cell, card)
+                   for cell in ("s4", "2x2")}}
+    # coloring's reference: the same cell on the plain backend on the card
+    # (integer work: bitwise there, as [4d] holds its persistent drain)
+    plain = host_outcome(*shard_run("coloring", graph, shard_config(
+        "s4", max_rounds=HOST_ROUNDS, backend="torch"), source, "cuda")[:3])
+    out["coloring"] = sharded_first_rounds(
+        "coloring", graph, source, card,
+        {"rounds": HOST_ROUNDS, "outcome": plain,
+         "held_against": "the plain backend on the card"})
+    full = wait_server_child(children["full"])
+    log(f"    CPU child (the full-width PageRank): ran {full['ran']:.1f} s, "
+        f"waited {full['waited']:.1f} s")
+    out["pagerank"] = sharded_first_rounds(
+        "pagerank", graph, source, card,
+        {"rounds": HOST_ROUNDS, "outcome": full["pagerank"],
+         "held_against": "the CPU"})
+
+    small = wait_server_child(children["small"])
+    log(f"    CPU child (the rmat({small_scale}) cells): ran "
+        f"{small['ran']:.1f} s, waited {small['waited']:.1f} s")
+    g_small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    s_source = int(torch.argmax(g_small.degrees()))
+    out["small"] = {}
+    for algo, cell, kernel in SHARD_SMALL_CELLS:
+        label = f"{algo}.{cell}"
+        state, stats, info, secs = shard_run(
+            algo, g_small, shard_config(cell, kernel), s_source, "cuda")
+        same_outcome(f"rmat({small_scale}) {label} {kernel}",
+                     host_outcome(state, stats, info), small[label])
+        if info["mis_routed"] or info["dropped"]:
+            raise AssertionError(f"{label}: {info}")
+        out["small"][label] = {"kernel": kernel, "info": info,
+                               "seconds": secs}
+    log(f"    rmat({small_scale}) whole drains on the card equal the CPU's "
+        f"bit for bit: " + ", ".join(
+            f"{k} {v['kernel']} {v['info']['rounds']} rounds "
+            f"{v['seconds']:.2f} s" for k, v in out["small"].items())
+        + f"  [{card}]")
+    out["seconds"] = time.perf_counter() - t_start
+    out["children"] = {"full": {"ran": full["ran"], "waited": full["waited"]},
+                       "small": {"ran": small["ran"],
+                                 "waited": small["waited"]}}
+    log(f"    [4i] took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 # ------------------------------------------------------ B5, phases 3 and 6
 # (label, B, H, KVH, Sq, Skv, D, dtype, causal, window); the first is the
 # LM path's per-layer shape (minitron-4b prefill, B=2 x T=4096)
@@ -3789,6 +4129,10 @@ def main() -> int:
     cpu_children = {cell: start_server_child(min(args.scale, 14), "cpu",
                                              [cell], f"cpu.{cell}")
                     for cell in SERVER_CELLS}
+    # and [4i]'s CPU reference: the full-width first rounds, the small cells
+    shard_children = {"full": start_shard_child("full", args.scale),
+                      "small": start_shard_child("small",
+                                                 min(args.scale, 14))}
     sass = flash_sass()
     log(f"  B5 (csrc/flash_attention.cu) SASS: "
         + ", ".join(f"{op} {n}" for op, n in sass.items()))
@@ -3922,6 +4266,14 @@ def main() -> int:
         f"the CLI")
     server = server_path(graph, grid, source, want, want_grid, cpu_children,
                          out_dir, card, min(args.scale, 14))
+    log(f"[4i] the sharded topology, four shards on one card: BFS "
+        f"rmat({args.scale}) from 4's source on a 1-D strict mesh and a 2x2 "
+        f"deferred, compressed, stealing mesh (B1, B2 a shard body and "
+        f"push); PageRank (and the ordered scatter-add) and coloring on the "
+        f"1-D mesh over their first {SHARD_FIRST_ROUNDS} rounds; "
+        f"rmat({min(args.scale, 14)}) whole drains against the CPU")
+    sharded = sharded_path(graph, source, state.dist, shard_children, card,
+                           min(args.scale, 14))
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -4481,6 +4833,16 @@ def main() -> int:
     for name in ("lbs", "compact"):
         if not full_counts[name]:
             raise AssertionError(f"the full-width server launched no {name}")
+    # the sharded topology's launches ([4i]): the full-width runs
+    for kern in kernels:
+        name = kern["name"]
+        if name in ("lbs", "compact", "ordered_scatter_add"):
+            kern["sharded_launches"] = {
+                **{f"bfs {cell}": run["launches"][name]
+                   for cell, run in sharded["bfs"].items()},
+                **{f"{algo} s4 first {SHARD_FIRST_ROUNDS} rounds":
+                   sharded[algo]["launches"][name]
+                   for algo in ("pagerank", "coloring")}}
     timed_alone = ("lbs", "compact", "csr_stream", "csr_stream.slotted",
                    "ordered_scatter_add", "ordered_scatter_add.f64")
     for kern in (k for k in kernels if k["name"] in timed_alone):
@@ -4530,6 +4892,7 @@ def main() -> int:
         "fused_traced": fused,
         "streaming": stream,
         "server": server,
+        "sharded": sharded,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

@@ -95,19 +95,25 @@ def init_state(graph: CSRGraph, source: int) -> BFSState:
 def make_wavefront_fn(graph: CSRGraph, strategy: str, work_budget: int,
                       max_degree: int, backend: str = "auto",
                       codec: ChunkCodec | None = None,
-                      split_threshold: int | None = None):
+                      split_threshold: int | None = None,
+                      owner_block: int | None = None,
+                      formation_row_ptr=None):
     """Speculative-BFS wavefront body ``f(items, valid, state)``.
 
     ``strategy`` is ``"merge_path"`` (CTA worker, load-balancing search,
     whose backend ``backend`` selects) or ``"per_item"`` (warp worker).
     ``codec`` makes the body chunk-aware: popped tasks decode to
     ``(head, width)`` row runs and improved neighbors are re-coalesced into
-    chunks at push time.  The identity codec (G = 1) is the single-vertex
-    body.
+    chunks at push time, bounded by ``split_threshold`` and the shard
+    ``owner_block``.  ``formation_row_ptr`` is the global row_ptr a shard's
+    body forms chunks with (pushed vertices may be remote, so their degree
+    sums cannot come from the shard's slice).  The identity codec (G = 1)
+    is the single-vertex body.
     """
     codec = codec or ChunkCodec(1)
     g = codec.granularity
     rp, cols, overlay = adjacency_of(graph)
+    form_rp = rp if formation_row_ptr is None else formation_row_ptr
 
     def f(items, valid, state: BFSState):
         safe = torch.where(valid, items, 0)
@@ -154,7 +160,8 @@ def make_wavefront_fn(graph: CSRGraph, strategy: str, work_budget: int,
         # push: improved neighbors re-coalesce into chunks; truncated
         # chunks are re-queued whole, unchanged.
         out_new, new_mask, n_splits = coalesce_chunks(
-            ex.nbr, improved, codec, rp, split_threshold=split_threshold)
+            ex.nbr, improved, codec, form_rp, split_threshold=split_threshold,
+            owner_block=owner_block)
         counter = counter.add_splits(n_splits)
         out_items = torch.cat([out_new, torch.where(truncated, items, 0)])
         out_mask = torch.cat([new_mask, truncated])
@@ -170,7 +177,9 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
     ``params``: ``source``, ``strategy`` (merge_path | per_item),
     ``work_budget``.  ``cfg.granularity`` sets the chunk width G; the seed
-    is a width-1 chunk.
+    is a width-1 chunk.  Under the sharded topology ``dist`` merges by
+    ``pmin`` (the union of every shard's relaxations), the work counter by
+    delta-psum, and tasks are routed and stolen by their head vertex.
     """
     source = int(params.pop("source", 0))
     strategy = params.pop("strategy", "merge_path")
@@ -180,8 +189,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     max_degree = max_degree_of(graph)
     budget = default_work_budget(graph, cfg.wavefront, work_budget,
                                  max_degree=max_degree)
-    codec, threshold = chunking_for(
-        cfg, budget if strategy == "merge_path" else None)
+    codec, threshold, owner_block = chunking_for(
+        graph, cfg, budget if strategy == "merge_path" else None)
     per_item = strategy == "per_item"
     # per_item's most units of one chunk, for the drain kernel's int32
     # check: read once, here (at G = 1 it is the max degree)
@@ -191,9 +200,10 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                        else max_chunk_degree_of(graph, codec.granularity))
 
     def make_body(body_graph: CSRGraph, ctx: ProgramContext):
-        return make_wavefront_fn(body_graph, strategy, budget, max_degree,
-                                 backend=ctx.backend, codec=codec,
-                                 split_threshold=threshold)
+        return make_wavefront_fn(
+            body_graph, strategy, budget, max_degree, backend=ctx.backend,
+            codec=codec, split_threshold=threshold, owner_block=owner_block,
+            formation_row_ptr=graph.row_ptr.to(body_graph.device))
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
@@ -224,6 +234,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
                       chunk_seeds([source], codec, graph.row_ptr)),
         make_body=make_body,
         result=lambda s: s.dist,
+        merge={"dist": "pmin", "counter": "work_counter"},
+        task_vertex=codec.head,
         work=lambda s: s.counter.work,
         splits=lambda s: s.counter.splits,
         ideal_work=n,
@@ -238,14 +250,16 @@ def bfs_speculative(graph: CSRGraph, source: int, cfg: SchedulerConfig,
                     strategy: str = "merge_path",
                     work_budget: int | None = None,
                     queue_capacity: int | None = None,
-                    trace=None) -> Tuple[torch.Tensor, dict]:
+                    trace=None, mesh=None) -> Tuple[torch.Tensor, dict]:
     """Relaxed-barrier BFS on the Atos scheduler: a thin driver over
-    :func:`repro_torch.runtime.execute`, which takes ``trace``."""
+    :func:`repro_torch.runtime.execute`, which takes ``trace`` and, under
+    the sharded topology, ``mesh``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity,
                            source=source, strategy=strategy,
                            work_budget=work_budget)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity, trace=trace)
+                             queue_capacity=queue_capacity, trace=trace,
+                             mesh=mesh)
     return state.dist, info

@@ -169,11 +169,12 @@ def coloring_bsp(graph: CSRGraph, max_iters: int = 10000,
 
 
 def init_state(graph: CSRGraph, codec: ChunkCodec | None = None,
-               split_threshold: int | None = None
+               split_threshold: int | None = None,
+               owner_block: int | None = None
                ) -> Tuple[ColorState, torch.Tensor]:
     """Initial state and seed tasks, an assign per vertex; at ``G > 1``
-    the every-vertex frontier packs into maximal chunks, each encoded
-    ``+(task + 1)``."""
+    the every-vertex frontier packs into maximal chunks (inside one shard
+    ``owner_block``), each encoded ``+(task + 1)``."""
     n = graph.num_vertices
     device = graph.device
     state = ColorState(colors=torch.full((n,), -1, dtype=_I32, device=device),
@@ -181,28 +182,29 @@ def init_state(graph: CSRGraph, codec: ChunkCodec | None = None,
     if codec is None or codec.granularity == 1:
         return state, torch.arange(1, n + 1, dtype=_I32, device=device)
     chunks = chunk_seeds(np.arange(n), codec, graph.row_ptr,
-                         split_threshold=split_threshold)
+                         split_threshold=split_threshold,
+                         owner_block=owner_block)
     return state, torch.as_tensor(chunks + 1, device=device)
 
 
 def make_wavefront_fn(graph: CSRGraph, budget: int, fused: bool = True,
                       codec: ChunkCodec | None = None,
                       split_threshold: int | None = None,
-                      formation_row_ptr=None, backend: str = "auto"):
-    """The fused assign/detect body (Alg 6).
+                      formation_row_ptr=None, backend: str = "auto",
+                      owner_block: int | None = None):
+    """The assign/detect body (Alg 6).
 
     An assign chunk colors its ``width`` vertices from the wavefront-start
-    colors and queues one detect chunk for the same run; a detect reads the
-    colors after this wavefront's assigns; conflicted vertices re-coalesce
-    into assign chunks.  ``budget`` bounds the degree sum of one phase's
+    colors and queues one detect chunk for the same run; conflicted
+    vertices re-coalesce into assign chunks (inside one shard
+    ``owner_block``).  ``budget`` bounds the degree sum of one phase's
     lanes (:func:`flat_budget`); ``backend`` picks the expansion's search.
-    The unfused body (detects on wavefront-start colors) serves the sharded
-    topology and comes with ROADMAP A12.
+    The fused body's detects read the colors after this wavefront's
+    assigns.  The unfused body (``fused=False``) serves the sharded
+    topology: its detects read the wavefront-start colors, so a detect
+    sees the same colors whichever shard ran a same-round assign, and a
+    conflict is found one round later, never lost.
     """
-    if not fused:
-        raise NotImplementedError(
-            "the unfused body serves the sharded topology, ROADMAP A12")
-    n = graph.num_vertices
     codec = codec or ChunkCodec(1)
     g = codec.granularity
     rp = graph.row_ptr
@@ -228,13 +230,16 @@ def make_wavefront_fn(graph: CSRGraph, budget: int, fused: bool = True,
         # this scatter are unique
         colors = scatter_set(state.colors, vids, flat_assign, pick)
 
-        # phase B: detects read this wavefront's commits
+        # phase B: detects read this wavefront's commits (fused) or the
+        # wavefront-start colors (unfused)
         ex_d = _gather_neighbor_colors(graph, vids, flat_detect, budget,
                                        backend)
-        bad = _conflicts(colors, vids, flat_detect, ex_d)
+        bad = _conflicts(colors if fused else state.colors, vids,
+                         flat_detect, ex_d)
 
         re_assign, re_mask, n_splits = coalesce_chunks(
-            vids, bad, codec, form_rp, split_threshold=split_threshold)
+            vids, bad, codec, form_rp, split_threshold=split_threshold,
+            owner_block=owner_block)
         out = torch.cat([torch.where(is_assign, -(codes + 1), 0),
                          torch.where(re_mask, re_assign + 1, 0)])
         mask = torch.cat([is_assign, re_mask])
@@ -256,7 +261,10 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     work, but not the one a cold drain gives); ``"recolor"`` has no rule,
     so a delta batch re-seeds in full (bit-identical to a cold drain).  The
     megakernel cell runs the drain kernel B3-col
-    (``kernels/drain_loop/coloring_drain``) at every granularity.
+    (``kernels/drain_loop/coloring_drain``) at every granularity.  The
+    sharded topology runs the unfused body; colors are single-writer per
+    round, so both state fields merge by delta-psum, and a task's owner is
+    its decoded chunk head.
     """
     dirty = params.pop("dirty", "conflicts")
     reject_unknown_params("coloring", params)
@@ -264,14 +272,15 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         raise ValueError(f"coloring dirty mode must be 'conflicts' or "
                          f"'recolor', got {dirty!r}")
     n = graph.num_vertices
-    codec, threshold = chunking_for(cfg)
+    codec, threshold, owner_block = chunking_for(graph, cfg)
     budget = flat_budget(graph, cfg.wavefront * cfg.granularity)
 
     def make_body(body_graph: CSRGraph, ctx: ProgramContext):
-        return make_wavefront_fn(body_graph, budget, codec=codec,
-                                 split_threshold=threshold,
-                                 formation_row_ptr=graph.row_ptr,
-                                 backend=ctx.backend)
+        return make_wavefront_fn(
+            body_graph, budget, fused=not ctx.sharded, codec=codec,
+            split_threshold=threshold,
+            formation_row_ptr=graph.row_ptr.to(body_graph.device),
+            backend=ctx.backend, owner_block=owner_block)
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
@@ -298,9 +307,11 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
     return AtosProgram(
         name="coloring",
-        init=lambda: init_state(graph, codec, threshold),
+        init=lambda: init_state(graph, codec, threshold, owner_block),
         make_body=make_body,
         result=lambda s: s.colors,
+        merge={"colors": "sum_delta", "counter": "work_counter"},
+        task_vertex=lambda t: codec.head(t.to(_I32).abs() - 1),
         work=lambda s: s.counter.work,
         splits=lambda s: s.counter.splits,
         ideal_work=n,
@@ -313,16 +324,17 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 
 
 def coloring_async(graph: CSRGraph, cfg: SchedulerConfig,
-                   queue_capacity: int | None = None, trace=None
+                   queue_capacity: int | None = None, trace=None, mesh=None
                    ) -> Tuple[torch.Tensor, dict]:
-    """Alg 6: the fused assign/detect body on the Atos queue, a thin
-    driver over :func:`repro_torch.runtime.execute`, which takes
-    ``trace``."""
+    """Alg 6: the assign/detect body on the Atos queue, a thin driver over
+    :func:`repro_torch.runtime.execute`, which takes ``trace`` and
+    ``mesh``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity, trace=trace)
+                             queue_capacity=queue_capacity, trace=trace,
+                             mesh=mesh)
     return state.colors, info
 
 

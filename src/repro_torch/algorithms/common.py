@@ -1,8 +1,7 @@
 """Helpers shared by the queue-driven algorithm drivers: budgets, chunking
 and a dense scatter-set.
 
-The counterpart of ``repro/algorithms/common.py`` (single-shard branch; the
-shard-ownership block comes with the sharded slice).
+The counterpart of ``repro/algorithms/common.py``.
 """
 from __future__ import annotations
 
@@ -59,20 +58,25 @@ def default_work_budget(graph: CSRGraph, wavefront: int,
     return max(work_budget, max_degree)
 
 
-def chunking_for(cfg, work_budget: int | None = None
-                 ) -> Tuple[ChunkCodec, Optional[int]]:
-    """``(codec, split_threshold)`` for a chunk-aware body on one device.
+def chunking_for(graph: CSRGraph, cfg, work_budget: int | None = None
+                 ) -> Tuple[ChunkCodec, Optional[int], Optional[int]]:
+    """``(codec, split_threshold, owner_block)`` for a chunk-aware body.
 
     The threshold is the tighter of ``cfg.split_threshold`` (0 = unset) and
     the merge-path ``work_budget`` -- a liveness bound: a chunk whose degree
-    sum exceeded the budget would be re-queued whole forever.  The
-    reference's shard-ownership block comes with the sharded slice.
+    sum exceeded the budget would be re-queued whole forever.
+    ``owner_block`` is the shard-ownership block when the config names a
+    mesh (``cfg.num_shards > 1``): chunks never cross it, since routing
+    keys off the chunk head and a shard's CSR slice covers its own block
+    only.  None on one shard.
     """
-    if cfg.num_shards > 1:
-        raise NotImplementedError(
-            "sharded chunking comes with the sharded slice, ROADMAP A12")
+    from ..shard.partition import block_size  # lazy: shard -> runtime
+
     bounds = [b for b in (cfg.split_threshold, work_budget) if b]
-    return ChunkCodec(cfg.granularity), (min(bounds) if bounds else None)
+    owner_block = (block_size(graph.num_vertices, cfg.num_shards)
+                   if cfg.num_shards > 1 else None)
+    return (ChunkCodec(cfg.granularity), (min(bounds) if bounds else None),
+            owner_block)
 
 
 def scatter_set(base: torch.Tensor, index: torch.Tensor, mask: torch.Tensor,

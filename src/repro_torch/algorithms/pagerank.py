@@ -14,8 +14,10 @@ the reference's bit for bit and the same from run to run on the card.
 Duplicate wavefront entries are de-duplicated by keeping the first
 occurrence of each chunk head (the GPU's ``atomicExch`` semantics).
 
-The single-device branch: the rescan block of the sharded topology and
-the replica-merge spec come with ROADMAP A12.
+Under the sharded topology each shard rescans only its own vertex block
+(``check_block``), so rescan tasks are born on their owner, and the
+replicas merge rank and residue by delta-psum (summed in shard order, as
+the reference's all-reduce), the presence bits by or-delta.
 """
 from __future__ import annotations
 
@@ -179,18 +181,19 @@ def make_wavefront_fns(graph: CSRGraph, wavefront: int, n_check: int,
                        check_block=None, max_degree: int | None = None,
                        codec: ChunkCodec | None = None,
                        split_threshold: int | None = None,
+                       owner_block: int | None = None,
                        formation_row_ptr=None):
     """The async-PageRank wavefront bodies ``(f, on_empty, stop)``.
 
     ``wavefront`` sizes ``on_empty``'s padding, ``n_check`` is the rotating
     rescan window, ``backend`` picks the merge-path search and the
-    scatter-add.  ``check_block`` (the sharded rescan block) comes with
-    ROADMAP A12.
+    scatter-add.  ``check_block=(start, length)`` restricts the rescan to
+    one contiguous vertex block, a shard's own: window lanes past the
+    block's length are masked off, so a short or empty block neither
+    rescans another owner's vertices nor queues one vertex twice in a
+    window.  ``owner_block`` and ``formation_row_ptr`` bound chunk
+    formation as in the BFS body.
     """
-    if check_block is not None:
-        raise NotImplementedError(
-            "the sharded rescan block comes with the sharded slice, "
-            "ROADMAP A12")
     n = graph.num_vertices
     work_budget = default_work_budget(graph, wavefront, work_budget,
                                       max_degree=max_degree)
@@ -200,19 +203,29 @@ def make_wavefront_fns(graph: CSRGraph, wavefront: int, n_check: int,
                            codec=codec)
     n_check = min(n_check, n)
     j = torch.arange(n_check, dtype=_I32, device=graph.device)
+    if check_block is not None:
+        block_start, block_len = (int(x) for x in check_block)
+        in_window = j < block_len
 
     def scan_window(cursor):
-        """Next ``n_check`` ids of the rotating scan (all valid: the block
-        is the whole graph and ``n_check <= n``)."""
-        return (cursor + j) % max(n, 1)
+        """Next ``n_check`` ids of the rotating scan; without a block they
+        are all valid (the block is the whole graph and ``n_check <= n``),
+        in a block the lanes past its length are 0."""
+        if check_block is None:
+            return (cursor + j) % max(n, 1)
+        ids = block_start + (cursor + j) % max(block_len, 1)
+        return torch.where(in_window, ids, 0)
 
     def rescan(residue, in_queue, cursor):
         check_ids = scan_window(cursor)
         ids = check_ids.long()
         over = (residue[ids] > eps) & ~in_queue[ids]
+        if check_block is not None:
+            over = over & in_window
         in_queue = in_queue | mark(n, check_ids, over)
         out_scan, scan_mask, n_splits = coalesce_chunks(
-            check_ids, over, codec, form_rp, split_threshold=split_threshold)
+            check_ids, over, codec, form_rp, split_threshold=split_threshold,
+            owner_block=owner_block)
         return in_queue, out_scan, scan_mask, n_splits
 
     def f(items, valid, state: PRState):
@@ -253,8 +266,13 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     ``seed_count``.  ``empty_means_done=False``: the rotating rescan
     refills a drained queue, so only ``stop`` (max residue <= eps) ends the
     drain.  The megakernel cell runs the drain kernel B3-pr
-    (``kernels/drain_loop/pagerank_drain``) at every granularity.
+    (``kernels/drain_loop/pagerank_drain``) at every granularity.  Under
+    the sharded topology each shard's rescan covers its own vertex block,
+    rank and residue merge by delta-psum, the presence bits by or-delta,
+    and the cursor (advanced alike on every shard) is replicated.
     """
+    from ..shard.partition import block_size  # lazy: shard -> runtime
+
     damping = float(params.pop("damping", 0.85))
     eps = float(params.pop("eps", 1e-6))
     check_size = int(params.pop("check_size", 64))
@@ -265,21 +283,31 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
     max_degree = max_degree_of(graph)
     budget = default_work_budget(graph, cfg.wavefront, work_budget,
                                  max_degree=max_degree)
-    codec, threshold = chunking_for(cfg, budget)
+    codec, threshold, owner_block = chunking_for(graph, cfg, budget)
     n_check = min(cfg.num_workers * check_size, n)
+    # the rescan blocks must be the partition's ownership blocks exactly, or
+    # rescan tasks are born off their owner and break the single writers
+    blk = block_size(n, cfg.num_shards)
     capacity = queue_capacity or max(8 * n, 1024)
     if seed_count is None:
         seed_count = min(n, max(1, capacity // 2))
     fns_cache: dict = {}
 
     def _fns(body_graph: CSRGraph, ctx: ProgramContext):
-        key = (id(body_graph.row_ptr), ctx.wavefront, ctx.backend)
+        check_block = None
+        if ctx.sharded:
+            start = ctx.shard * blk
+            check_block = (start, min(max(n - start, 0), blk))
+        # body / on_empty share one closure build per graph and context
+        key = (id(body_graph.row_ptr), ctx.wavefront, ctx.backend,
+               check_block)
         if key not in fns_cache:
             fns_cache[key] = (body_graph, make_wavefront_fns(
                 body_graph, ctx.wavefront, n_check=n_check, damping=damping,
                 eps=eps, work_budget=budget, backend=ctx.backend,
-                max_degree=max_degree, codec=codec,
-                split_threshold=threshold, formation_row_ptr=graph.row_ptr))
+                check_block=check_block, max_degree=max_degree, codec=codec,
+                split_threshold=threshold, owner_block=owner_block,
+                formation_row_ptr=graph.row_ptr.to(body_graph.device)))
         return fns_cache[key][1]
 
     # stop reads only the state: built once from the global graph
@@ -291,7 +319,8 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         # the dense seed frontier packs into maximal chunks at G > 1
         return state, torch.as_tensor(chunk_seeds(
             seeds.cpu().numpy(), codec, graph.row_ptr,
-            split_threshold=threshold), device=graph.device)
+            split_threshold=threshold, owner_block=owner_block),
+            device=graph.device)
 
     def make_drain_kernel(body_graph: CSRGraph, ctx: ProgramContext,
                           max_rounds: int):
@@ -324,6 +353,10 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
         result=lambda s: s.rank,
         stop=stop,
         empty_means_done=False,
+        merge={"rank": "sum_delta", "residue": "sum_delta",
+               "in_queue": "or_delta", "check_cursor": "replicated",
+               "counter": "work_counter"},
+        task_vertex=codec.head,
         work=lambda s: s.counter.work,
         splits=lambda s: s.counter.splits,
         ideal_work=n,
@@ -337,17 +370,18 @@ def make_program(graph: CSRGraph, cfg: SchedulerConfig, *,
 def pagerank_async(graph: CSRGraph, cfg: SchedulerConfig,
                    damping: float = 0.85, eps: float = 1e-6,
                    check_size: int = 64, work_budget: int | None = None,
-                   queue_capacity: int | None = None, trace=None
+                   queue_capacity: int | None = None, trace=None, mesh=None
                    ) -> Tuple[torch.Tensor, dict]:
     """Alg 4: queue-driven asynchronous PageRank, a thin driver over
     :func:`repro_torch.runtime.execute`; ``info["max_residue"]`` is the
-    largest residue left; ``trace`` goes to ``execute``."""
+    largest residue left; ``trace`` and ``mesh`` go to ``execute``."""
     from ..runtime.api import execute  # lazy: runtime.api -> this module
 
     program = make_program(graph, cfg, queue_capacity=queue_capacity,
                            damping=damping, eps=eps, check_size=check_size,
                            work_budget=work_budget)
     state, _, info = execute(program, graph, cfg,
-                             queue_capacity=queue_capacity, trace=trace)
+                             queue_capacity=queue_capacity, trace=trace,
+                             mesh=mesh)
     info["max_residue"] = float(state.residue.max())
     return state.rank, info

@@ -4,8 +4,10 @@ from .backend import (BACKENDS, STREAM, STREAM_TORCH, has_cuda,
 from .queue import (EMPTY, MultiQueue, TaskQueue, make_multiqueue,
                     make_queue)
 from .scheduler import (QueueOps, RunStats, SchedulerConfig, continuation,
-                        discrete_drive, megakernel_drive, megakernel_segment,
-                        no_host_sync, persistent_drive, taskqueue_ops,
+                        discrete_drive, discrete_run, megakernel_drive,
+                        megakernel_run, megakernel_segment, no_host_sync,
+                        partial_step, persistent_drive, persistent_run,
+                        resolve_empty_means_done, run, taskqueue_ops,
                         wavefront_step)
 from .frontier import (Expansion, adjacency_of, chunk_degrees, chunk_row_of,
                        expand_merge_path, expand_per_item, gather_neighbors,
@@ -19,9 +21,10 @@ __all__ = [
     "resolve_device",
     "EMPTY", "MultiQueue", "TaskQueue", "make_multiqueue", "make_queue",
     "QueueOps", "RunStats", "SchedulerConfig", "continuation",
-    "discrete_drive", "megakernel_drive", "megakernel_segment",
-    "no_host_sync", "persistent_drive", "taskqueue_ops",
-    "wavefront_step",
+    "discrete_drive", "discrete_run", "megakernel_drive", "megakernel_run",
+    "megakernel_segment", "no_host_sync", "partial_step",
+    "persistent_drive", "persistent_run", "resolve_empty_means_done", "run",
+    "taskqueue_ops", "wavefront_step",
     "Expansion", "adjacency_of", "chunk_degrees", "chunk_row_of",
     "expand_merge_path", "expand_per_item", "gather_neighbors",
     "searchsorted_right",

@@ -208,16 +208,21 @@ class MultiQueue:
             return tree_map(lambda x: x.index_select(0, idx)[0], self.lanes)
         return tree_map(lambda x: x[int(lane_id)], self.lanes)
 
-    def with_lane(self, lane_id, lane: TaskQueue) -> "MultiQueue":
+    def with_lane(self, lane_id, lane: TaskQueue,
+                  base: TaskQueue | None = None) -> "MultiQueue":
         """Write a (possibly updated) lane back into the stack.  A one-lane
-        stack is the lane itself, with no copy."""
+        stack is the lane itself, with no copy.  ``base``, the view of the
+        lane that ``lane`` was derived from, marks the fields left as they
+        were (the same tensor in both), which keep the stack's field
+        uncopied."""
         if self.num_lanes == 1:
             lanes = tree_map(lambda new: new.unsqueeze(0), lane)
         else:
             idx = self._index(lane_id)
             lanes = tree_map(
-                lambda full, new: full.index_copy(0, idx, new.unsqueeze(0)),
-                self.lanes, lane)
+                lambda full, new, old: full if base is not None and new is old
+                else full.index_copy(0, idx, new.unsqueeze(0)),
+                self.lanes, lane, lane if base is None else base)
         return dataclasses.replace(self, lanes=lanes)
 
     def reset_lane(self, lane_id) -> "MultiQueue":
@@ -254,22 +259,26 @@ class MultiQueue:
         # the first non-empty lane in rr order, as a one-element tensor
         pick = order.index_select(0, torch.argmax(nonempty.to(_I32))
                                   .reshape(1))
-        items, valid, lane2 = self.lane(pick).pop(n)
+        lane = self.lane(pick)
+        items, valid, lane2 = lane.pop(n)
         return items, valid, dataclasses.replace(
-            self.with_lane(pick, lane2), rr=((pick + 1) % lanes).reshape(()))
+            self.with_lane(pick, lane2, base=lane),
+            rr=((pick + 1) % lanes).reshape(()))
 
     def pop_lane(self, lane_id, n: int, quota=None, width_of=None):
         """Pop up to ``quota``'s worth of items from one named lane; the
         quota counts slots, or vertices with ``width_of`` (see
         :meth:`TaskQueue.pop_upto`).  The round-robin pointer stays."""
-        items, valid, lane2 = self.lane(lane_id).pop_upto(
+        lane = self.lane(lane_id)
+        items, valid, lane2 = lane.pop_upto(
             n, n if quota is None else quota, width_of=width_of)
-        return items, valid, self.with_lane(lane_id, lane2)
+        return items, valid, self.with_lane(lane_id, lane2, base=lane)
 
     def push(self, lane_id, items: torch.Tensor, mask: torch.Tensor,
              backend: str = "auto") -> "MultiQueue":
-        return self.with_lane(
-            lane_id, self.lane(lane_id).push(items, mask, backend=backend))
+        lane = self.lane(lane_id)
+        return self.with_lane(lane_id, lane.push(items, mask, backend=backend),
+                              base=lane)
 
 
 def make_multiqueue(capacity: int, num_lanes: int,

@@ -17,16 +17,22 @@ application function ``f``, push the produced tasks.
     program's CUDA drain kernel (``kernels/drain_loop``).
 
 The step is generic over a :class:`QueueOps` triple, as in the reference.
+The raw-``WavefrontFn`` entry points of the reference (:func:`run`,
+:func:`persistent_run`, :func:`discrete_run`, :func:`megakernel_run`,
+:func:`partial_step`) drive one plain ``TaskQueue`` through the same
+drivers; new code builds an ``AtosProgram`` and calls
+``runtime.execute``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .counters import WorkCounter
+from .queue import TaskQueue
 from .tree import tree_map, tree_where
 
 # f(items, valid, state) -> (new_items, new_mask, new_state)
@@ -58,12 +64,18 @@ class SchedulerConfig:
     The fields and their meaning are the reference's; see
     ``repro/core/scheduler.SchedulerConfig``.  ``backend`` is the port's
     axis (``"torch" | "cuda" | "auto"``, core/backend.py) and defaults to
-    ``"auto"``.  The port executes the ``single`` and ``fused``
-    topologies under the ``persistent``, ``discrete`` and ``megakernel``
-    strategies; the topology and kernel fields take every value of the
-    policy matrix, and ``runtime.execute`` names the ROADMAP item of each
-    cell it cannot run yet.  The sharded topology's exchange and stealing
-    fields come with its slice.
+    ``"auto"``.  The port executes every cell of the policy matrix.
+
+    The sharded topology's fields (``repro_torch/shard``):
+    ``steal_threshold`` turns ring work stealing on (a shard donates up to
+    ``steal_chunk`` owned tasks to its ring successor when the occupancy
+    gap passes ``steal_threshold x mean``; 0 is off); ``mesh_shape``
+    folds the ``num_shards`` into a ``(rows, cols)`` mesh whose exchange
+    takes a column hop, then a row hop (None: the 1-D ring);
+    ``defer_rounds`` 1 stages each round's exchanged tasks and delivers
+    them at the start of the next round (0: strict); ``compress`` runs
+    each hop's buffer through the delta codec (``shard/codec.py``) and
+    meters its words.
     """
 
     num_workers: int = 64        # numBlock: parallel workers per wavefront
@@ -76,6 +88,11 @@ class SchedulerConfig:
     granularity: int = 1         # max chunk width G (core/task.py); 1 = fine
     split_threshold: int = 0     # chunk degree-sum cap; 0 = work-budget only
     kernel: str = "auto"         # persistent | discrete | megakernel | auto
+    steal_threshold: float = 0.0  # occupancy-skew trigger; 0 = stealing off
+    steal_chunk: int = 64        # max tasks donated per shard per round
+    mesh_shape: Optional[Tuple[int, int]] = None  # (rows, cols) 2-D mesh
+    defer_rounds: int = 0        # exchange delivery relaxation (0 = strict)
+    compress: bool = False       # delta-compress exchange payloads (codec)
 
     @property
     def wavefront(self) -> int:
@@ -227,3 +244,91 @@ def discrete_drive(step, cond, carry0, *, ops: QueueOps | None = None,
             trace.append((size_before, int(carry[3]) - prev_processed))
             prev_processed = int(carry[3])
     return carry
+
+
+# ---------------------------------------------------- TaskQueue entry points
+def resolve_empty_means_done(on_empty,
+                             empty_means_done: Optional[bool]) -> bool:
+    """The raw entry points' default: without an explicit declaration a
+    drain with ``on_empty`` ignores the queue size (the reference's legacy
+    inference); ``AtosProgram.empty_means_done`` declares it instead."""
+    return on_empty is None if empty_means_done is None else empty_means_done
+
+
+def _raw_drain(f, queue: TaskQueue, state, cfg: SchedulerConfig, stop,
+               on_empty, empty_means_done, queue_cfg=None):
+    """``(step, cond, ops, carry0)`` of a raw-``WavefrontFn`` drain."""
+    ops = taskqueue_ops(queue_cfg or cfg)
+    cond = continuation(ops, cfg, stop,
+                        resolve_empty_means_done(on_empty, empty_means_done))
+    step = lambda carry: wavefront_step(f, on_empty, ops, carry)
+    zero = torch.zeros((), dtype=torch.int32, device=queue.buf.device)
+    return step, cond, ops, (queue, state, zero, zero)
+
+
+def _finish(carry):
+    q, s, rounds, processed = carry
+    return q, s, RunStats(rounds, processed, q.dropped)
+
+
+def persistent_run(f: WavefrontFn, queue: TaskQueue, state: Any,
+                   cfg: SchedulerConfig, stop=None, on_empty=None,
+                   empty_means_done: Optional[bool] = None):
+    """Run until the queue drains (or ``stop(state)``) on the device:
+    ``(queue, state, RunStats)``."""
+    step, cond, _, carry0 = _raw_drain(f, queue, state, cfg, stop, on_empty,
+                                       empty_means_done)
+    return _finish(persistent_drive(step, cond, carry0))
+
+
+def discrete_run(f: WavefrontFn, queue: TaskQueue, state: Any,
+                 cfg: SchedulerConfig, stop=None, on_empty=None,
+                 empty_means_done: Optional[bool] = None, trace=None):
+    """Host-driven loop, one round per iteration (discrete kernels);
+    ``trace`` is :func:`discrete_drive`'s legacy list."""
+    step, cond, ops, carry0 = _raw_drain(f, queue, state, cfg, stop,
+                                         on_empty, empty_means_done)
+    return _finish(discrete_drive(step, cond, carry0, ops=ops, trace=trace))
+
+
+def megakernel_run(f: WavefrontFn, queue: TaskQueue, state: Any,
+                   cfg: SchedulerConfig, stop=None, on_empty=None,
+                   empty_means_done: Optional[bool] = None):
+    """The raw-``WavefrontFn`` megakernel strategy: the plain fused drain,
+    its queue ops on the plain backend as the reference sets them up.  The
+    drain kernels are per program (``AtosProgram.make_drain_kernel``), so
+    a raw ``f`` has none: on CUDA tensors this raises, and
+    ``runtime.execute`` on a program runs the kernel."""
+    if queue.buf.is_cuda:
+        raise NotImplementedError(
+            "megakernel_run drains a raw WavefrontFn, which has no CUDA "
+            "drain kernel; build an AtosProgram and call runtime.execute "
+            "under a megakernel policy")
+    step, cond, _, carry0 = _raw_drain(
+        f, queue, state, cfg, stop, on_empty, empty_means_done,
+        queue_cfg=dataclasses.replace(cfg, backend="torch"))
+    return _finish(megakernel_drive(step, cond, carry0))
+
+
+def run(f, queue, state, cfg: SchedulerConfig, stop=None, on_empty=None,
+        empty_means_done: Optional[bool] = None, trace=None):
+    """Dispatch on the kernel strategy: ``cfg.kernel="megakernel"`` routes
+    to :func:`megakernel_run` (the ``persistent`` bool alone never selects
+    it), else ``cfg.persistent`` picks :func:`persistent_run` or
+    :func:`discrete_run`."""
+    if cfg.kernel == "megakernel":
+        return megakernel_run(f, queue, state, cfg, stop=stop,
+                              on_empty=on_empty,
+                              empty_means_done=empty_means_done)
+    if cfg.persistent:
+        return persistent_run(f, queue, state, cfg, stop=stop,
+                              on_empty=on_empty,
+                              empty_means_done=empty_means_done)
+    return discrete_run(f, queue, state, cfg, stop=stop, on_empty=on_empty,
+                        empty_means_done=empty_means_done, trace=trace)
+
+
+def partial_step(f, on_empty, cfg: SchedulerConfig):
+    """The round ``step(carry)`` of a raw ``f`` over one TaskQueue."""
+    ops = taskqueue_ops(cfg)
+    return lambda carry: wavefront_step(f, on_empty, ops, carry)

@@ -74,15 +74,16 @@ class ChunkCodec:
 
 
 def coalesce_chunks(vids: torch.Tensor, mask: torch.Tensor, codec: ChunkCodec,
-                    row_ptr: torch.Tensor, *, split_threshold=None):
+                    row_ptr: torch.Tensor, *, split_threshold=None,
+                    owner_block=None):
     """Pack marked vertex ids into chunk tasks, in place.
 
     Each maximal set of marked vertices in one G-aligned window
-    ``[bG, bG + G)`` that is contiguous and within ``split_threshold``
-    total degree becomes a single chunk on its head lane; everything else
-    stays a width-1 chunk on its own lane.  Returns ``(items, out_mask,
-    n_splits)``.  Identity at G = 1.  (The reference's shard-ownership
-    bound comes with the sharded slice.)
+    ``[bG, bG + G)`` that is contiguous, within ``split_threshold`` total
+    degree and inside one shard ``owner_block`` becomes a single chunk on
+    its head lane; everything else stays a width-1 chunk on its own lane.
+    ``row_ptr`` is the global one (pushed vertices may live on another
+    shard).  Returns ``(items, out_mask, n_splits)``.  Identity at G = 1.
     """
     vids = vids.to(_I32)
     mask = mask.to(torch.bool)
@@ -113,6 +114,8 @@ def coalesce_chunks(vids: torch.Tensor, mask: torch.Tensor, codec: ChunkCodec,
     degsum = row_ptr[torch.clamp(vmin + cnt, 0, n)] - row_ptr[head]
     fits = (torch.ones_like(contiguous) if split_threshold is None
             else degsum <= split_threshold)
+    if owner_block is not None:
+        fits = fits & (vmin // owner_block == vmax // owner_block)
     form = contiguous & fits
 
     form_b = form[blk]
@@ -127,16 +130,17 @@ def coalesce_chunks(vids: torch.Tensor, mask: torch.Tensor, codec: ChunkCodec,
 
 
 def chunk_seeds(vids, codec: ChunkCodec, row_ptr, *,
-                split_threshold=None) -> np.ndarray:
+                split_threshold=None, owner_block=None) -> np.ndarray:
     """Host-side greedy chunker for an initial frontier (numpy).
 
-    Emits maximal chunks of consecutive ids bounded by the codec width and
-    the degree-sum ``split_threshold``; returns the encoded int32 chunk
-    array, every entry valid.  The reference walks the ids one at a time;
-    here each position's chunk length is found at once (the end of its run
-    of consecutive ids, ``G``, and a ``searchsorted`` of ``row_ptr`` for the
-    threshold), and the chain of chunk heads from position 0 is walked by
-    pointer doubling, so the work is O(k log k) in numpy with no Python
+    Emits maximal chunks of consecutive ids bounded by the codec width,
+    the degree-sum ``split_threshold`` and the shard ``owner_block``
+    boundary; returns the encoded int32 chunk array, every entry valid.
+    The reference walks the ids one at a time; here each position's chunk
+    length is found at once (the end of its run of consecutive ids, ``G``,
+    a ``searchsorted`` of ``row_ptr`` for the threshold, the end of its
+    owner block), and the chain of chunk heads from position 0 is walked
+    by pointer doubling, so the work is O(k log k) in numpy with no Python
     loop over the ids.
     """
     vids = np.asarray(vids, dtype=np.int64)
@@ -160,6 +164,10 @@ def chunk_seeds(vids, codec: ChunkCodec, row_ptr, *,
         # failing v is one before the first index past rp[h] + threshold
         past = np.searchsorted(rp, rp[vids] + split_threshold, side="right")
         length = np.minimum(length, np.maximum(past - 1 - vids, 1))
+    if owner_block is not None:
+        # a chunk never crosses into the next shard's block
+        length = np.minimum(length, (vids // owner_block + 1) * owner_block
+                            - vids)
     # heads: the chain 0 -> nxt[0] -> ... (k is the end sentinel), marked
     # by doubling the jump nxt^(2^r) while marking its targets
     jump = np.append(pos + length, k)

@@ -59,6 +59,19 @@ def from_edges(n: int, src, dst, symmetrize: bool = False,
     return CSRGraph(row_ptr=row_ptr, col_idx=(key % n).to(torch.int32))
 
 
+def permute_vertices(g: CSRGraph, perm) -> CSRGraph:
+    """Relabel vertices by ``perm`` (old id -> new id), on the graph's
+    device: the paper's section 6.4 experiment, where a random permutation
+    of the ids breaks the "consecutive queue entries are neighbors" pattern
+    in graph coloring."""
+    perm = torch.as_tensor(perm, dtype=torch.int64, device=g.device)
+    src = torch.repeat_interleave(
+        torch.arange(g.num_vertices, device=g.device),
+        g.degrees().long(), output_size=g.num_edges)
+    return from_edges(g.num_vertices, perm[src], perm[g.col_idx.long()],
+                      device=g.device)
+
+
 def degree_stats(g: CSRGraph) -> dict:
     deg = g.degrees().cpu().numpy()
     return {

@@ -17,7 +17,7 @@ drains everything through one TaskServer, printing per-job telemetry
 (latency, rounds, occupancy, overwork) and the server totals.
 ``--compare-sequential`` also runs the tenant-at-a-time baseline.  The
 sharding flags (``--shards > 1``, ``--mesh``, ``--overlap``,
-``--compress``) come with ROADMAP A12 and exit with an error.
+``--compress``) come with ROADMAP A12b and exit with an error.
 """
 from __future__ import annotations
 
@@ -167,14 +167,14 @@ def main(argv=None) -> None:
                     help="torch device for the graphs and the server's "
                          "queue (default cuda)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="sharded BFS jobs: ROADMAP A12, not ported")
+                    help="sharded BFS jobs: ROADMAP A12b, not ported")
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("R", "C"),
-                    help="a 2-D device mesh: ROADMAP A12, not ported")
+                    help="a 2-D device mesh: ROADMAP A12b, not ported")
     ap.add_argument("--overlap", action="store_true",
-                    help="deferred exchange delivery: ROADMAP A12")
+                    help="deferred exchange delivery: ROADMAP A12b")
     ap.add_argument("--compress", action="store_true",
-                    help="compressed exchange payloads: ROADMAP A12")
+                    help="compressed exchange payloads: ROADMAP A12b")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
                     help="turn the BFS jobs into streaming jobs over N "
                          "delta batches")
@@ -224,7 +224,7 @@ def main(argv=None) -> None:
                         ("--overlap", args.overlap),
                         ("--compress", args.compress)):
         if given:
-            ap.error(f"{flag}: sharded jobs come with ROADMAP A12")
+            ap.error(f"{flag}: sharded jobs come with ROADMAP A12b")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     if args.snapshot_every and not args.checkpoint_dir:

@@ -1,9 +1,10 @@
 """``execute``: one front door for (program, policy) combinations.
 
-The counterpart of ``repro/runtime/api.py``.  The port runs the ``single``
-and ``fused`` topologies under the ``persistent``, ``discrete`` and
-``megakernel`` kernel strategies at every granularity; the ``sharded``
-topology raises ``NotImplementedError`` naming ROADMAP A12.  The outcome
+The counterpart of ``repro/runtime/api.py``.  The port runs every cell
+of the policy matrix at every granularity: the ``single`` and ``fused``
+topologies under the ``persistent``, ``discrete`` and ``megakernel``
+kernel strategies, and the ``sharded`` topology under ``persistent`` and
+``discrete`` (``shard/driver.run_sharded`` over a ``mesh``).  The outcome
 is normalized to ``(state, RunStats, info)`` as in the reference.
 
 The two topologies share the step and differ in their :class:`QueueOps`:
@@ -27,7 +28,9 @@ without one raises, and never falls back.  On CPU tensors, or with backend
 carry as a fifth leaf under every single/fused policy and records one row
 per round (:func:`instrument_step`); a megakernel cell's drain kernel
 writes the rows itself (its traced mode).  A plain ``list`` is the
-discrete driver's legacy ``(size_before, items)`` trace.
+discrete driver's legacy trace: ``(size_before, items)`` pairs, or on a
+sharded cell the reference's per-round dicts.  Sharded tracing, sharded
+streams and sharded server jobs come with ROADMAP A12b and raise.
 """
 from __future__ import annotations
 
@@ -47,9 +50,8 @@ from ..obs import Trace
 from .policy import ExecutionPolicy, policy_of
 from .program import AtosProgram, ProgramContext
 
-_LATER_SLICES = {
-    "sharded": "the sharded topology comes with ROADMAP A12",
-}
+#: what the sharded topology does not run yet
+A12B = "ROADMAP A12b"
 
 
 class ExecutionResult(NamedTuple):
@@ -231,10 +233,10 @@ def drain_setup(program: AtosProgram, graph, cfg: SchedulerConfig, *,
     :func:`_shared_setup`'s; ``rounds`` and ``processed`` start the carry's
     counts (a restored mid-drain carry)."""
     policy = policy_of(cfg)
-    for axis in (policy.topology, policy.kernel):
-        if axis in _LATER_SLICES:
-            raise NotImplementedError(
-                f"policy {policy} is not ported yet: {_LATER_SLICES[axis]}")
+    if policy.topology == "sharded":
+        raise ValueError(
+            f"drain_setup builds single and fused drains; {policy} runs "
+            f"through execute (shard/driver.run_sharded)")
     kernel = (drain_kernel_for(program, graph, cfg)
               if policy.kernel == "megakernel" else None)
     queue, state, ops, step, cond, dropped_of = _shared_setup(
@@ -250,22 +252,71 @@ def drain_setup(program: AtosProgram, graph, cfg: SchedulerConfig, *,
     return DrainSetup(carry, step, cond, kernel, ops, dropped_of)
 
 
+def _run_sharded(program: AtosProgram, graph, cfg: SchedulerConfig,
+                 queue_capacity, trace, route_width, mesh) -> ExecutionResult:
+    """A sharded cell: ``shard.run_sharded``, its stats as ``RunStats``
+    (drops include the exchange's) and the reference's ``info`` keys."""
+    from ..shard import run_sharded  # lazy: shard imports this package
+
+    if isinstance(trace, Trace):
+        raise NotImplementedError(
+            f"sharded tracing (trace=Trace() under {policy_of(cfg)}) is not "
+            f"ported yet: it comes with {A12B}")
+    state, sstats = run_sharded(
+        program, graph, cfg, queue_capacity=queue_capacity,
+        route_width=route_width, mesh=mesh, trace=trace)
+
+    def count(x):
+        return torch.tensor(x, dtype=torch.int32)
+
+    stats = RunStats(count(sstats.rounds), count(sstats.items_processed),
+                     count(sstats.dropped + sstats.route_dropped))
+    info = {
+        "rounds": sstats.rounds,
+        "work": program.work_of(state),
+        "dropped": sstats.dropped + sstats.route_dropped,
+        "splits": program.splits_of(state),
+        "shards": len(sstats.per_device_items),
+        "exchanged": sstats.exchanged,
+        "donated": sstats.donated,
+        "steal_rounds": sstats.steal_rounds,
+        "mis_routed": sstats.mis_routed,
+        "occupancy_balance": sstats.occupancy_balance,
+        "exchanged_row": sstats.exchanged_row,
+        "exchanged_col": sstats.exchanged_col,
+        "payload_ints": sstats.payload_ints,
+        "padding_ints": sstats.padding_ints,
+        "wire_ints": sstats.wire_ints,
+        "deferred": sstats.deferred_delivered,
+        "overlap_rounds": sstats.overlap_rounds,
+        "overlap_occupancy": sstats.overlap_occupancy,
+    }
+    return ExecutionResult(state, stats, info)
+
+
 def execute(program: AtosProgram, graph, cfg: SchedulerConfig, *,
             queue_capacity: Optional[int] = None,
-            trace: Optional[Any] = None) -> ExecutionResult:
+            trace: Optional[Any] = None, route_width: Optional[int] = None,
+            mesh=None) -> ExecutionResult:
     """Drain ``program`` on ``graph`` under the config's resolved policy.
 
-    The drain runs where the graph lives.  Returns ``(final_state,
-    RunStats, info)``; ``info["launches"]`` counts kernel-entry events per
-    drain, as in the reference: one per round for the persistent and
-    discrete strategies, one for the megakernel.  ``trace`` is a
-    :class:`~repro_torch.obs.Trace` (every single/fused policy: the rows,
-    an ``execute {policy}`` span and a ``run`` doc), a ``list`` (the
-    discrete driver's per-round ``(size_before, items)``; ignored by the
-    other strategies, as in the reference) or None: exactly the untraced
-    drain.
+    A single or fused drain runs where the graph lives; a sharded one on
+    ``mesh`` (a ``launch.mesh.ShardMesh``; default ``cuda:0 ..
+    cuda:S-1``, which raises where fewer cards are visible), with
+    ``route_width`` bounding a shard's sends to one destination a round.
+    Returns ``(final_state, RunStats, info)``; ``info["launches"]`` counts
+    kernel-entry events per drain, as in the reference: one per round for
+    the persistent and discrete strategies, one for the megakernel; a
+    sharded ``info`` carries the exchange, steal and wire meters.
+    ``trace`` is a :class:`~repro_torch.obs.Trace` (every single/fused
+    policy: the rows, an ``execute {policy}`` span and a ``run`` doc), a
+    ``list`` (the discrete driver's legacy trace; ignored by the other
+    strategies, as in the reference) or None: exactly the untraced drain.
     """
     policy = policy_of(cfg)
+    if policy.topology == "sharded":
+        return _run_sharded(program, graph, cfg, queue_capacity, trace,
+                            route_width, mesh)
     obs = trace if isinstance(trace, Trace) else None
     legacy = trace if isinstance(trace, list) else None
     setup = drain_setup(program, graph, cfg, queue_capacity=queue_capacity,
@@ -335,7 +386,7 @@ def stream_execute(algorithm, graph, deltas, cfg: SchedulerConfig, *,
     newest one.  ``algorithm`` is a registered program name (an
     :class:`AtosProgram` is taken for its name: the program is rebuilt per
     batch).  The sharded topology raises ``NotImplementedError`` naming
-    ROADMAP A12 before any commit.  Returns a :class:`~repro_torch.stream.
+    ROADMAP A12b before any commit.  Returns a :class:`~repro_torch.stream.
     driver.StreamResult`.
     """
     from ..stream.driver import run_stream  # lazy: stream imports runtime

@@ -66,7 +66,7 @@ _BASE_GRID: Tuple[SchedulerConfig, ...] = (
 #: alias one of them and waste calibration runs).
 BACKEND_GRID: Tuple[str, ...] = ("torch", "cuda")
 
-#: the searched execution topologies; ``sharded`` comes with ROADMAP A12.
+#: the searched execution topologies; ``sharded`` comes with ROADMAP A12b.
 TOPOLOGY_GRID: Tuple[str, ...] = ("single", "fused")
 
 #: the searched task granularities.

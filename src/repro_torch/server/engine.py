@@ -32,7 +32,7 @@ finishes.
 (tenants are admitted and finalized between rounds): the server logs a
 warning and runs the per-round steps, and batch tenants launch no drain
 kernel; streaming tenants' batch drains do run the drain kernels.
-``JobSpec(shards > 1)`` is refused at submit: sharding is ROADMAP A12.
+``JobSpec(shards > 1)`` is refused at submit: sharded jobs are ROADMAP A12b.
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ class ServerStats:
     backpressure_events: int = 0
     deferred_admissions: int = 0
     wavefront: int = 0
-    sharded_jobs: int = 0          # the reference's; 0 until ROADMAP A12
+    sharded_jobs: int = 0          # the reference's; 0 until ROADMAP A12b
     sharded_rounds: int = 0
     streaming_jobs: int = 0        # jobs served as streaming phases
     stream_batches: int = 0        # delta batches drained in those phases
@@ -191,7 +191,7 @@ class TaskServer:
         if spec.shards > 1:
             raise NotImplementedError(
                 f"JobSpec(shards={spec.shards}) asks for a sharded drain, "
-                f"which comes with ROADMAP A12")
+                f"which comes with ROADMAP A12b")
         job_id = self._next_job_id()
         self._jobs.append(Job(job_id=job_id, program=None,
                               weight=spec.weight, spec=spec))

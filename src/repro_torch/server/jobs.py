@@ -43,7 +43,7 @@ class JobSpec:
     """A tenant's request.  ``weight`` feeds the weighted fairness policy.
 
     ``shards > 1`` asks for a sharded single-tenant drain, which comes with
-    ROADMAP A12: ``TaskServer.submit`` refuses it.  ``stream`` takes a
+    ROADMAP A12b: ``TaskServer.submit`` refuses it.  ``stream`` takes a
     :class:`~repro_torch.stream.StreamSpec`: the job is a streaming job
     (a delta log committed batch by batch with incremental recompute),
     served as a dedicated phase before the fused rounds.
@@ -53,7 +53,7 @@ class JobSpec:
     graph: str                     # name registered with the JobRegistry
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     weight: float = 1.0
-    shards: int = 1                # >1 = sharded single-tenant job (A12)
+    shards: int = 1                # >1 = sharded single-tenant job (A12b)
     stream: Optional[Any] = None
 
     def __post_init__(self):

@@ -17,7 +17,7 @@ Snapshots cut a drain at round boundaries.  Rounds and processed items live
 in the carry, so a segmented drain takes exactly the steps of an uncut one,
 and a resumed run -- replay the delta log, rebuild the program, restore
 the carry, keep the segment schedule -- is bit-identical to the
-uninterrupted one.  The sharded topology comes with ROADMAP A12 and raises
+uninterrupted one.  The sharded stream comes with ROADMAP A12b and raises
 before any commit.
 """
 from __future__ import annotations
@@ -187,7 +187,7 @@ def run_stream(
     if policy.topology == "sharded":
         raise NotImplementedError(
             f"stream_execute under {policy} is not ported yet: the sharded "
-            f"topology comes with ROADMAP A12")
+            f"stream comes with ROADMAP A12b")
     deltas = list(deltas)
     params = dict(params or {})
     total = len(deltas) + 1

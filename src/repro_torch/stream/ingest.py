@@ -157,5 +157,5 @@ def reshard(graph, num_shards: int, halo: bool = True, *,
             parts=None, touched_rows=None):
     """The sharded (re)build of a committed graph: not ported yet."""
     raise NotImplementedError(
-        "the sharded per-owner patch comes with the sharded topology, "
-        "ROADMAP A12")
+        "the sharded per-owner patch comes with the sharded stream, "
+        "ROADMAP A12b")

@@ -445,8 +445,40 @@ def test_params_and_unported_options(graphs):
                          params={"dirty": "recolor"}).dirty_seeds is None
     with pytest.raises(ValueError, match="dirty mode"):
         build_program("coloring", tgraph, cfg, params={"dirty": "recolr"})
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcol.make_wavefront_fn(tgraph, 64, fused=False)
+    # the unfused body (the sharded topology's): its detects read the
+    # wavefront-start colors, as the reference's
+    jgraph = graphs["grid2d(16,16)"][0]
+    n = tgraph.num_vertices
+    rng = np.random.default_rng(11)
+    vids = rng.permutation(n)[:24].astype(np.int32)
+    items = np.where(rng.random(24) < 0.5, vids + 1, -(vids + 1))
+    colors = rng.integers(-1, 3, size=n).astype(np.int32)
+    # a same-colored edge: one end re-assigned in this wavefront, the end
+    # that loses the conflict detected (a conflict the fused body no
+    # longer sees, the unfused one does)
+    a, b = 200, int(tgraph.col_idx[tgraph.row_ptr[200]])
+    pa, pb = (int(x) for x in tcol._priority(torch.tensor([a, b])))
+    if not (pa < pb or (pa == pb and a < b)):
+        a, b = b, a
+    colors[[a, b]] = 0
+    items = np.where(np.isin(np.abs(items) - 1, [a, b]), 0, items)
+    items[20:22] = [a + 1, -(b + 1)]
+    items = items.astype(np.int32)
+    valid = items != 0
+    jf = jcol.make_wavefront_fn(jgraph, fused=False)
+    budget = tcol.flat_budget(tgraph, 24)
+    tf = tcol.make_wavefront_fn(tgraph, budget, fused=False, backend="torch")
+    jout = jf(jnp.asarray(items), jnp.asarray(valid), jcol.ColorState(
+        colors=jnp.asarray(colors), counter=jcol.WorkCounter.zero()))
+    tout = tf(torch.from_numpy(items), torch.from_numpy(valid),
+              coloring_state_from_numpy(colors, 0, 0, 0, device="cpu"))
+    for got, want in zip(tout[:2], jout[:2]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _assert_state(tout[2], jout[2])
+    fused = tcol.make_wavefront_fn(tgraph, budget, backend="torch")(
+        torch.from_numpy(items), torch.from_numpy(valid),
+        coloring_state_from_numpy(colors, 0, 0, 0, device="cpu"))
+    assert not torch.equal(fused[1], tout[1])   # the detects differ
     # the flat budget: the largest degrees a wavefront can hold
     deg = np.sort(tgraph.degrees().numpy())[::-1]
     assert tcol.flat_budget(tgraph, 10) == int(deg[:10].sum())

@@ -14,7 +14,8 @@ kernels' grid barrier alone (10^5 checked rounds), the
 flash-attention kernel B5 (its tensor-core and CUDA-core instances)
 against ``attention_ref`` within its stated tolerance, and the task
 server's 8-job mix on the card against the same server on the CPU, with
-the B1/B2 launches its lane steps imply.
+the B1/B2 launches its lane steps imply, and the sharded topology: four
+shards on one card against four CPU shards, and the exchange codec.
 
 Every test carries the ``gpu`` marker and skips inside its body when no
 CUDA device is available.  This file imports neither JAX nor the
@@ -1636,3 +1637,91 @@ def test_server_lane_steps_launch_b1_and_b2():
                                    if j.program.algorithm == "pagerank"),
         "bfs_drain": 0, "pagerank_drain": 0, "coloring_drain": 0}
     assert counts["lbs"] > 0 and counts["compact"] > 0
+
+
+# ------------------------------------------- the sharded topology (A12)
+SHARD_GPU_CELLS = {
+    "s4": dict(num_shards=4),
+    "2x2": dict(num_shards=4, mesh_shape=(2, 2), defer_rounds=1,
+                compress=True, steal_threshold=0.5),
+}
+
+
+def _sharded_run(algo, device, cell, persistent=True):
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.graph import rmat
+    from repro_torch.launch.mesh import make_shard_mesh, make_shard_mesh2d
+    from repro_torch.runtime import build_program
+    from repro_torch.runtime.api import execute
+
+    g = rmat(9, edge_factor=8, seed=3, device=device)
+    cfg = SchedulerConfig(num_workers=64, persistent=persistent,
+                          **SHARD_GPU_CELLS[cell])
+    devices = [torch.device(device)] * 4
+    mesh = (make_shard_mesh(4, devices=devices) if cfg.mesh_shape is None
+            else make_shard_mesh2d(2, 2, devices=devices))
+    params = {"source": 0} if algo == "bfs" else {}
+    return execute(build_program(algo, g, cfg, params=params), g, cfg,
+                   mesh=mesh)
+
+
+@pytest.mark.parametrize("cell", list(SHARD_GPU_CELLS))
+@pytest.mark.parametrize("algo", ["bfs", "pagerank", "coloring"])
+def test_sharded_drain_on_one_card_equals_the_cpu(algo, cell):
+    """Four shards on ``cuda:0`` through B1, B2 (and the ordered
+    scatter-add), no host sync inside a window: the state, RunStats and
+    every meter bitwise equal to the same mesh of CPU shards."""
+    _require_cuda()
+    from repro_torch.kernels.frontier_expand.kernel import lbs_cuda
+    from repro_torch.kernels.queue_compact.kernel import compact_cuda
+
+    lbs_cuda.launches = compact_cuda.launches = 0
+    got = _sharded_run(algo, "cuda", cell)
+    assert lbs_cuda.launches > 0 and compact_cuda.launches > 0
+    want = _sharded_run(algo, "cpu", cell)
+    for a, b in zip(vars(got.state).values(), vars(want.state).values()):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a.cpu(), b)
+    assert got.state.counter.work.item() == want.state.counter.work.item()
+    assert [int(x) for x in got.stats] == [int(x) for x in want.stats]
+    assert got.info == want.info
+    assert got.info["mis_routed"] == 0 and got.info["dropped"] == 0
+
+
+def test_sharded_discrete_drain_on_one_card_equals_the_cpu():
+    _require_cuda()
+    got = _sharded_run("coloring", "cuda", "2x2", persistent=False)
+    want = _sharded_run("coloring", "cpu", "2x2", persistent=False)
+    assert torch.equal(got.state.colors.cpu(), want.state.colors)
+    assert got.info == want.info
+
+
+def test_codec_on_the_card_equals_the_cpu():
+    """The exchange codec's words, word count and decode on CUDA tensors
+    equal the CPU's, in every layout and width."""
+    _require_cuda()
+    from repro_torch.shard.codec import decode_buffer, encode_buffer
+
+    rng = np.random.default_rng(2)
+    e = -(2 ** 31)
+    for rows, width in ((1, 1), (4, 8), (3, 33), (2, 300), (4, 1024),
+                        (2, 70000)):
+        for regime in range(4):
+            buf = np.full((rows, width), e, np.int64)
+            for r in range(rows):
+                k = int(rng.integers(0, width + 1))
+                vals = (rng.integers(0, 512, k) if regime == 0 else
+                        rng.integers(-2 ** 31 + 1, 2 ** 31 - 1, k)
+                        if regime == 1 else
+                        np.sort(rng.integers(0, 1 << 20, k)))
+                if regime == 3:
+                    buf[r, rng.choice(width, size=k, replace=False)] = vals
+                else:
+                    buf[r, :k] = vals
+            cpu = torch.as_tensor(buf.astype(np.int32))
+            w_cpu, n_cpu = encode_buffer(cpu)
+            w_gpu, n_gpu = encode_buffer(cpu.cuda())
+            assert torch.equal(w_gpu.cpu(), w_cpu)
+            assert int(n_gpu) == int(n_cpu)
+            assert torch.equal(decode_buffer(w_gpu, rows, width).cpu(),
+                               decode_buffer(w_cpu, rows, width))

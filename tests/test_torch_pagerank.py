@@ -477,8 +477,28 @@ def test_unknown_params_and_unported_options_raise(graphs):
     cfg = SchedulerConfig(num_workers=4)
     with pytest.raises(ValueError, match="unknown pagerank params"):
         build_program("pagerank", tgraph, cfg, params={"dampng": 0.8})
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpr.make_wavefront_fns(tgraph, 4, 8, check_block=(0, 8))
+    # the sharded rescan block: a window of 8 over a block of 5 masks its
+    # last 3 lanes, as the reference's
+    jgraph = graphs["grid2d(16,16)"][0]
+    jf, jempty, _ = jpr.make_wavefront_fns(jgraph, 4, 8, check_block=(8, 5),
+                                           owner_block=16)
+    tf, tempty, _ = tpr.make_wavefront_fns(tgraph, 4, 8, check_block=(8, 5),
+                                           owner_block=16, backend="torch")
+    jst, _ = jpr.init_state(jgraph, seed_count=3)
+    tst, _ = tpr.init_state(tgraph, seed_count=3)
+    for _ in range(3):
+        jout, tout = jempty(jst), tempty(tst)
+        for got, want in zip(tout[:2], jout[:2]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        _assert_state(tout[2], jout[2])
+        jst, tst = jout[2], tout[2]
+    items = np.array([8, 9, 3, -2 ** 31], np.int32)
+    valid = items >= 0
+    jout = jf(jnp.asarray(items), jnp.asarray(valid), jst)
+    tout = tf(torch.from_numpy(items), torch.from_numpy(valid), tst)
+    for got, want in zip(tout[:2], jout[:2]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _assert_state(tout[2], jout[2])
     state, seeds = tpr.init_state(tgraph, seed_count=3)
     assert seeds.tolist() == [0, 1, 2] and int(state.in_queue.sum()) == 3
     assert isinstance(state.counter, WorkCounter)

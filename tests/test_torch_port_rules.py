@@ -160,11 +160,24 @@ def test_policy_matrix_parses_like_jax():
     ("sharded.persistent.g4", "A12"), ("sharded.discrete", "A12"),
     ("sharded.persistent", "A12")])
 def test_unported_cells_name_their_roadmap_item(policy, item):
+    """The sharded cells, once unported, run since ROADMAP ``item``: on a
+    CPU mesh (given explicitly: with none, a mesh of cards is asked for
+    and refused here) BFS equals the single drain, in 1 and 2 shards."""
+    from repro_torch.launch.mesh import make_shard_mesh
+
     g = tg.grid2d(3, 3, device="cpu")
-    cfg = config_for(SchedulerConfig(num_workers=2), parse_policy(policy))
-    with pytest.raises(NotImplementedError, match=item):
-        execute(build_program("bfs", g, SchedulerConfig(num_workers=2)), g,
-                cfg)
+    want = execute(build_program("bfs", g, SchedulerConfig(num_workers=2)),
+                   g, SchedulerConfig(num_workers=2)).state.dist
+    for shards in (1, 2):
+        cfg = config_for(SchedulerConfig(num_workers=2, num_shards=shards),
+                         parse_policy(policy))
+        with pytest.raises(RuntimeError, match="devices="):
+            execute(build_program("bfs", g, cfg), g, cfg)
+        mesh = make_shard_mesh(shards, devices=["cpu"] * shards)
+        state, stats, info = execute(build_program("bfs", g, cfg), g, cfg,
+                                     mesh=mesh)
+        assert torch.equal(state.dist, want), item
+        assert info["shards"] == shards and info["mis_routed"] == 0
 
 
 def test_cpu_megakernel_is_the_plain_fused_drain_in_one_launch():
@@ -207,7 +220,7 @@ def test_unported_algorithms_and_trace_raise():
     g = tg.grid2d(3, 3, device="cpu")
     cfg = SchedulerConfig(num_workers=2)
     sharded = config_for(cfg, parse_policy("sharded.persistent"))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12b"):
         execute(build_program("bfs", g, cfg), g, sharded, trace=Trace())
     with pytest.raises(ValueError, match="unknown bfs params"):
         build_program("bfs", g, cfg, params={"sorce": 0})
@@ -216,7 +229,7 @@ def test_unported_algorithms_and_trace_raise():
 @pytest.mark.parametrize("entry", ["stream_execute", "reshard"])
 def test_sharded_streams_raise_naming_a12(entry):
     """The streaming slice runs every single and fused cell; the sharded
-    topology raises naming ROADMAP A12 before any commit."""
+    stream raises naming ROADMAP A12b before any commit."""
     from repro_torch.graph import edge_delta_stream
     from repro_torch.graph.slotted import SlottedCSR
     from repro_torch.runtime import stream_execute
@@ -224,7 +237,7 @@ def test_sharded_streams_raise_naming_a12(entry):
 
     g = tg.grid2d(4, 4, device="cpu")
     deltas = edge_delta_stream(g, 2, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12b"):
         if entry == "stream_execute":
             stream_execute("bfs", g, deltas, config_for(
                 SchedulerConfig(num_workers=2),

@@ -290,7 +290,7 @@ def test_registry_builds_each_job_from_its_params(registries, spec):
 
 def test_sharded_jobs_raise_naming_a12():
     server = TaskServer(JobRegistry(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12b"):
         server.submit(JobSpec("bfs", "grid", {"source": 0}, shards=2))
 
 
@@ -572,4 +572,4 @@ def test_cli_sharding_flags_exit_naming_a12(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         taskserver.main(["--device", "cpu", *flags])
     assert exc.value.code == 2
-    assert "A12" in capsys.readouterr().err
+    assert "A12b" in capsys.readouterr().err

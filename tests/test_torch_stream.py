@@ -17,7 +17,7 @@ Inputs are made with numpy from a seed and handed to both packages:
     stream does not run on its installed version); trace rows against
     JAX's;
   * incremental streams against cold drains within the port, snapshots
-    resumed in-process, and the sharded topology raising A12.
+    resumed in-process, and the sharded stream raising A12b.
 
 All bitwise, except PageRank against a cold drain (within 10 eps, the
 reference's contract).
@@ -410,5 +410,5 @@ def test_snapshot_resume_in_process_is_bit_identical(stream_inputs,
 
 def test_sharded_stream_raises_before_any_commit(stream_inputs):
     _, tbase, _, td = stream_inputs
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12b"):
         stream_execute("bfs", tbase, td, _cfg("sharded.persistent"))
