@@ -140,12 +140,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      card, exit 0, fused rounds below sequential;
   4i. the sharded topology (ROADMAP A12), four shards on one card
      (``devices=[cuda:0] * 4``) through ``execute(..., mesh=...)``: BFS
-     from 4's source under ``sharded.persistent`` on a 1-D strict mesh and
-     on a 2x2 mesh with deferred delivery, the codec and stealing, dist
-     equal to 4's single drain, nothing mis-routed or dropped, something
-     donated, the B1 and B2 launches those the predicated steps imply,
-     each drain under the profiler (device ops a step, busy share);
-     PageRank and coloring on the 1-D mesh over their first 64 rounds
+     from 4's source under ``sharded.persistent`` on a 2x2 mesh with
+     deferred delivery, the codec and stealing, dist equal to 4's single
+     drain, nothing mis-routed or dropped, something donated, the B1 and
+     B2 launches those the predicated steps imply (the 1-D strict mesh's
+     drain runs in 4j);
+     PageRank and coloring on the 1-D mesh over their first 32 rounds
      (launches as implied), PageRank's first 16 rounds bitwise equal to
      the same cell run on the CPU (a child process started after 2),
      coloring's first 16 to the same cell on the plain backend on the
@@ -154,6 +154,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      ``sharded.discrete``), PageRank and coloring (1-D, persistent)
      drained whole, bitwise equal to the CPU child's runs (state,
      RunStats, info);
+  4j. the sharded stream, sharded server jobs, the CLI's sharding flags
+     and sharded tracing (ROADMAP A12), four shards on one card: BFS on
+     the 1-D mesh over 4g's delta log (``stream_execute``, the partition
+     patched per owner after each commit), each batch's dist equal to
+     4g's stream's at that batch and batch 0's (the whole drain) to 4's;
+     the same BFS as a traced ``JobSpec(shards=4)`` in a ``TaskServer``
+     beside a fused tenant, dist equal to 4's, telemetry to batch 0's
+     ``ShardRunStats``, one row a shard a round, B1 and B2 as the steps
+     imply, its first 32 steps under the profiler; at rmat(14) a traced
+     2x2 discrete drain with the codec and stealing and a sharded
+     PageRank stream bitwise equal to the CPU child's, a sharded BFS
+     stream snapshotted and resumed bit-identical; the sharding CLI
+     (``--shards 4 --mesh 2 2 --overlap --compress --stream 2`` with
+     ``--shard-devices``) on the card printing the CPU's table;
   5. time each kernel, its plain version and one library call for the same
      function -- device time per call from torch.profiler, and time per
      call of a back-to-back run between CUDA events; B1 also at coloring's
@@ -193,6 +207,7 @@ go to ``chiprun_out/chip_smoke/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -2308,9 +2323,14 @@ def bfs_streams(graph, deltas, source: int, final, card: str) -> dict:
     out = {"cells": {}}
     base = None
     batches = STREAM["num_batches"] + 1
+    batch_dists = []
     for policy in ("single.megakernel", "single.megakernel.g4",
                    "fused.megakernel", "single.persistent"):
-        res, counts, secs = stream_run("bfs", graph, deltas, policy, params)
+        # the first stream's dist at each batch end, for [4j]'s sharded one
+        with batch_ends(lambda st: batch_dists.append(st.dist.clone())
+                        if policy == "single.megakernel" else None):
+            res, counts, secs = stream_run("bfs", graph, deltas, policy,
+                                           params)
         if "megakernel" in policy:
             launches_only(f"BFS stream {policy}", counts, "bfs_drain",
                           batches)
@@ -2402,7 +2422,8 @@ def bfs_streams(graph, deltas, source: int, final, card: str) -> dict:
         f"({tsecs:.3f} s)  [{card}]")
     out.update({"cold_info": cold_info, "snapshots": len(ticks),
                 "segment_launches": counts["bfs_drain"],
-                "resumed_at": batch, "traced_rounds": total})
+                "resumed_at": batch, "traced_rounds": total,
+                "batch_dists": batch_dists})
     return out
 
 
@@ -2736,6 +2757,8 @@ def streaming_path(graph, source: int, card: str, small_scale: int) -> dict:
         f"{final.num_edges}; knobs {STREAM_KNOBS}")
     out = {"deltas": [d.num_ops for d in deltas], "gen_seconds": gen_secs}
     out["bfs"] = bfs_streams(graph, deltas, source, final, card)
+    # for [4j], taken out of the summary there
+    out["log"], out["batch_dists"] = deltas, out["bfs"].pop("batch_dists")
     out["pagerank"] = pagerank_stream(graph, deltas, final, card)
     out["coloring"] = coloring_streams(graph, deltas, final, card)
     view, slotted = slotted_view_after(graph, deltas[0])
@@ -3297,12 +3320,12 @@ SHARD_CELLS = {
     "2x2-raw": {"num_shards": 4, "mesh_shape": (2, 2), "defer_rounds": 1,
                 "steal_threshold": 0.5},
 }
-SHARD_FIRST_ROUNDS = 64                 # full-width PageRank and coloring
+SHARD_FIRST_ROUNDS = 32                 # full-width PageRank and coloring
 #: whole drains at the small scale, on the card against the CPU child:
 #: (algorithm, cell, kernel strategy); the CPU runs the codec and the
-#: shards' bodies slowly, so one cell an algorithm
+#: shards' bodies slowly, so one cell an algorithm.  PageRank's s4 drain
+#: is [4j]'s: its sharded stream's batch 0 drains that cell whole
 SHARD_SMALL_CELLS = [("bfs", "2x2-raw", "discrete"),
-                     ("pagerank", "s4", "persistent"),
                      ("coloring", "s4", "persistent")]
 #: B2 launches a shard a predicated step: the local push and the delivered
 #: push (strict), or the staged push and the local push (deferred; none in
@@ -3366,8 +3389,9 @@ def host_outcome(state, stats, info) -> dict:
 def shard_child() -> None:
     """The body of a CPU child (``SHARD_CHILD`` names its part): ``full``,
     the full-width PageRank on the 1-D mesh over its first
-    ``HOST_ROUNDS``; ``small``, each ``SHARD_SMALL_CELLS`` drain whole;
-    pickled for [4i].  (The CPU expands coloring's flat budget, 17.5 M
+    ``HOST_ROUNDS``; ``small``, each ``SHARD_SMALL_CELLS`` drain whole,
+    and [4j]'s traced 2x2 BFS and sharded PageRank stream; pickled for
+    [4i] and [4j].  (The CPU expands coloring's flat budget, 17.5 M
     units a shard body at rmat(21), in seconds: the full-width coloring is
     held against the plain backend on the card instead, as [4d] holds
     its persistent drain.)"""
@@ -3391,6 +3415,9 @@ def shard_child() -> None:
         for algo, cell, kernel in SHARD_SMALL_CELLS:
             out[f"{algo}.{cell}"] = host_outcome(*shard_run(
                 algo, graph, shard_config(cell, kernel), source, "cpu")[:3])
+        # [4j]'s cells
+        out["bfs.2x2.traced"] = traced_small(graph, source, "cpu")
+        out["pagerank.stream"] = shard_stream_small(graph, "cpu")
     out["ran"] = time.perf_counter() - started
     with open(spec["out"] + ".tmp", "wb") as f:
         pickle.dump(out, f)
@@ -3444,12 +3471,44 @@ def shard_launches(algo: str, cell: str, steps: int) -> dict:
     return only(**counts)
 
 
+@contextlib.contextmanager
+def first_window_profiled(window: dict):
+    """Run the first poll window (``POLL_EVERY`` predicated steps) of the
+    first persistent sharded drain inside under the profiler: ``window``
+    gets its wall ``secs`` (synchronized) and the profiler ``prof``.  Only
+    that window is recorded: the profiler's cost grows with the ops it
+    records, and a whole drain records hundreds of thousands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.shard import driver
+
+    real = driver.no_host_sync
+
+    @contextlib.contextmanager
+    def guard(device):
+        if window:
+            with real(device):
+                yield
+            return
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with real(device):
+                yield
+            torch.cuda.synchronize()
+            window["secs"] = time.perf_counter() - t0
+        window["prof"] = prof
+
+    driver.no_host_sync = guard
+    try:
+        yield
+    finally:
+        driver.no_host_sync = real
+
+
 def sharded_bfs(graph, source: int, dist, cell: str, card: str) -> dict:
-    """One full-width sharded BFS: launches, dist, meters and wall; then
-    its first ``POLL_EVERY`` steps (one poll window) again under the
-    profiler for device ops a step and busy share (the profiler's cost
-    grows with the ops it records, and a whole drain records hundreds of
-    thousands)."""
+    """One full-width sharded BFS: launches, dist, meters and wall (not
+    profiled: [4j] profiles its traced ``s4`` cell)."""
     from repro_torch.core.scheduler import POLL_EVERY
 
     cfg = shard_config(cell)
@@ -3471,15 +3530,6 @@ def sharded_bfs(graph, source: int, dist, cell: str, card: str) -> dict:
     if counts != implied:
         raise AssertionError(f"sharded BFS {cell}: launches {counts}, the "
                              f"{steps} predicated steps imply {implied}")
-    window = {}
-    cut = shard_config(cell, max_rounds=POLL_EVERY)
-
-    def first_window():
-        window["secs"] = shard_run("bfs", graph, cut, source, "cuda")[3]
-
-    dev_ms, rows = device_profile(first_window)
-    ops = sum(calls for _, _, calls in rows) / POLL_EVERY
-    busy = None if dev_ms is None else dev_ms / (1e3 * window["secs"])
     log(f"    BFS sharded.persistent {cell} ({cfg.mesh_shape or '1-D'}, "
         f"defer {cfg.defer_rounds}, compress {cfg.compress}, steal "
         f"{cfg.steal_threshold}): dist equals [4]'s; rounds "
@@ -3489,15 +3539,9 @@ def sharded_bfs(graph, source: int, dist, cell: str, card: str) -> dict:
         f"{info['payload_ints']}, padding {info['padding_ints']}), deferred "
         f"{info['deferred']}, balance {info['occupancy_balance']:.3f}; "
         f"launches {counts} as {steps} steps imply; wall {secs:.3f} s "
-        f"({1e3 * secs / steps:.2f} ms a step); the first {POLL_EVERY} "
-        f"steps under the profiler: {ops:.1f} device ops a step, busy "
-        f"{busy if busy is None else round(busy, 3)}  [{card}]")
-    for name, ms, calls in rows[:6]:
-        log(f"      {ms:10.3f} ms {calls:7d}  {name[:90]}")
+        f"({1e3 * secs / steps:.2f} ms a step)  [{card}]")
     return {"info": info, "launches": counts, "steps": steps,
-            "seconds": secs, "window_seconds": window["secs"],
-            "window_device_ms": dev_ms, "device_ops_a_step": ops,
-            "busy": busy, "rows": rows[:12]}
+            "seconds": secs}
 
 
 def sharded_first_rounds(algo: str, graph, source: int, card: str,
@@ -3541,8 +3585,9 @@ def sharded_first_rounds(algo: str, graph, source: int, card: str,
 def sharded_path(graph, source: int, dist, children: dict, card: str,
                  small_scale: int) -> dict:
     """Phase 4i: the sharded topology on four shards of one card (ROADMAP
-    A12).  BFS from [4]'s source on the 1-D strict mesh and on the 2x2
-    deferred, compressed, stealing mesh, its dist [4]'s; PageRank and
+    A12).  BFS from [4]'s source on the 2x2 deferred, compressed, stealing
+    mesh, its dist [4]'s (the 1-D strict mesh's drain runs in [4j]);
+    PageRank and
     coloring on the 1-D mesh over their first rounds (PageRank's first
     ``HOST_ROUNDS`` against the CPU child, coloring's against the plain
     backend on the card); every ``SHARD_SMALL_CELLS`` drain whole at
@@ -3562,9 +3607,11 @@ def sharded_path(graph, source: int, dist, children: dict, card: str,
     log(f"    the partition's col_idx, edges a shard: {stored} (int32; "
         f"the widest with the halo {4 * max(stored['halo']) / 2**20:.1f} "
         f"MiB, all {4 * sum(stored['halo']) / 2**20:.1f} MiB)")
+    # the s4 drain runs in [4j], as batch 0 of the sharded stream and as
+    # the traced server job (profiled there); the 2x2 drain's profiled
+    # window (about 7 s) is left out to pay for [4j]
     out = {"edges_stored": stored,
-           "bfs": {cell: sharded_bfs(graph, source, dist, cell, card)
-                   for cell in ("s4", "2x2")}}
+           "bfs": {"2x2": sharded_bfs(graph, source, dist, "2x2", card)}}
     # coloring's reference: the same cell on the plain backend on the card
     # (integer work: bitwise there, as [4d] holds its persistent drain)
     plain = host_outcome(*shard_run("coloring", graph, shard_config(
@@ -3582,6 +3629,7 @@ def sharded_path(graph, source: int, dist, children: dict, card: str,
          "held_against": "the CPU"})
 
     small = wait_server_child(children["small"])
+    children["small_result"] = small  # [4j] holds its cells against it too
     log(f"    CPU child (the rmat({small_scale}) cells): ran "
         f"{small['ran']:.1f} s, waited {small['waited']:.1f} s")
     g_small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
@@ -3607,6 +3655,472 @@ def sharded_path(graph, source: int, dist, children: dict, card: str,
                        "small": {"ran": small["ran"],
                                  "waited": small["waited"]}}
     log(f"    [4i] took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+# -------------- phase 4j: sharded streams, jobs and tracing (A12)
+#: the rmat(14) sharded streams' log (PageRank takes its first batch, at
+#: eps 1e-4: each of its rounds is host-bound on the card)
+SHARD_STREAM_SMALL = {"num_batches": 2, "batch_size": 256, "seed": 7,
+                      "insert_frac": 0.5}
+SHARD_PR_STREAM = {"damping": 0.85, "eps": 1e-4, "check_size": 64}
+#: the sharding CLI at a small scale, on the card and on the CPU
+SHARD_CLI = ["--jobs", "3", "--scale", "8", "--grid-side", "12",
+             "--shards", "4", "--mesh", "2", "2", "--overlap", "--compress",
+             "--stream", "2"]
+
+
+@contextlib.contextmanager
+def batch_ends(record):
+    """Call ``record(state)`` with each batch drain's final state of the
+    streams run inside (``stream/driver``'s two drive functions, wrapped
+    for the duration): the per-batch results a stream does not return."""
+    from repro_torch.stream import driver
+
+    shared, sharded = driver._drive_shared, driver._drive_sharded
+
+    def drive_shared(*a, **k):
+        carry = shared(*a, **k)
+        record(carry[1])
+        return carry
+
+    def drive_sharded(*a, **k):
+        out = sharded(*a, **k)
+        record(out[1])
+        return out
+
+    driver._drive_shared, driver._drive_sharded = drive_shared, drive_sharded
+    try:
+        yield
+    finally:
+        driver._drive_shared, driver._drive_sharded = shared, sharded
+
+
+@contextlib.contextmanager
+def shard_stats(sink: list):
+    """Append the ``ShardRunStats`` of each ``shard.run_sharded`` call made
+    inside (the stream driver looks it up at each call)."""
+    import repro_torch.shard as shard
+
+    real = shard.run_sharded
+
+    def run(*a, **k):
+        state, stats = real(*a, **k)
+        sink.append(stats)
+        return state, stats
+
+    shard.run_sharded = run
+    try:
+        yield
+    finally:
+        shard.run_sharded = real
+
+
+@contextlib.contextmanager
+def timed_reshards(rows: list):
+    """Append ``{"seconds", "dirty"}`` for each ``stream.reshard`` the
+    stream driver calls inside: its wall (synchronized) and the shards it
+    rebuilt (all of them for the first, full build)."""
+    from repro_torch.stream import driver
+
+    real = driver.reshard
+
+    def timed(*a, **k):
+        prev = k.get("parts")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = real(*a, **k)
+        torch.cuda.synchronize()
+        rows.append({"seconds": time.perf_counter() - t0, "dirty": [
+            d for d in range(parts.num_shards)
+            if prev is None or parts.col_idx[d] is not prev.col_idx[d]]})
+        return parts
+
+    driver.reshard = timed
+    try:
+        yield
+    finally:
+        driver.reshard = real
+
+
+def shard_stream_small(graph, device) -> tuple:
+    """The rmat(14) sharded PageRank stream on ``device`` (s4, persistent):
+    ``(outcome, records, info)``; ``outcome`` is the final state's leaves
+    as :func:`host_outcome` gives them."""
+    from repro_torch.graph import edge_delta_stream
+    from repro_torch.runtime import stream_execute
+
+    cfg = shard_config("s4")
+    deltas = edge_delta_stream(graph, **SHARD_STREAM_SMALL)[:1]
+    res = stream_execute("pagerank", graph, deltas, cfg,
+                         params=dict(SHARD_PR_STREAM),
+                         mesh=shard_mesh(cfg, device), **STREAM_KNOBS)
+    info = {k: v for k, v in res.info.items() if k != "commit_seconds"}
+    return ({"leaves": [x.cpu() for x in leaves(res.state)]},
+            records_of(res), info)
+
+
+def traced_small(graph, source: int, device) -> dict:
+    """BFS on the rmat(14) 2x2 mesh with deferred delivery, the codec and
+    stealing under ``sharded.discrete``, traced: outcome, rows and the
+    shard_run doc."""
+    from repro_torch.obs import Trace
+    from repro_torch.runtime import build_program, execute
+
+    cfg = shard_config("2x2", "discrete")
+    trace = Trace(capacity=TRACE_CAPACITY)
+    state, stats, info = execute(
+        build_program("bfs", graph, cfg, params={"source": source}), graph,
+        cfg, mesh=shard_mesh(cfg, device), trace=trace)
+    out = host_outcome(state, stats, info)
+    out["rows"] = trace.records
+    out["docs"] = trace.metrics
+    return out
+
+
+def start_shard_cli(device: str) -> tuple:
+    """The sharding CLI as a child process: on the card, its four shards
+    stacked on ``cuda:0``; on the CPU, seeing no card."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.taskserver",
+           *SHARD_CLI, "--device", device]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if device == "cuda":
+        cmd += ["--shard-devices", ",".join(["cuda:0"] * 4)]
+    else:  # one thread, as the other CPU children
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc, cmd, time.perf_counter()
+
+
+def wait_shard_cli(started) -> tuple:
+    proc, cmd, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"`{' '.join(cmd[1:])}` exited "
+                             f"{proc.returncode}:\n{stderr[-3000:]}")
+    return stdout, time.perf_counter() - t0
+
+
+def sharded_server_job(graph, source: int, dist, s4: dict, card: str,
+                       small_scale: int) -> dict:
+    """[4j](a): BFS on ``graph`` as a ``JobSpec(shards=4)`` on four shards
+    of the card beside one small fused tenant, traced: dist equal to [4]'s
+    and the telemetry to the untraced s4 drain's (``s4``: batch 0 of
+    (b)'s stream, the same drain); rows rounds x 4, their pops and
+    exchanged sums the run's; B1 and B2 as the steps imply; the job's
+    first ``POLL_EVERY`` steps under the profiler."""
+    from repro_torch.core import SchedulerConfig
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.graph import rmat
+    from repro_torch.obs import Trace
+    from repro_torch.server import JobRegistry, JobSpec, TaskServer
+
+    reg = JobRegistry()
+    reg.register_graph("rmat", graph)
+    reg.register_graph("small", rmat(small_scale, edge_factor=16, seed=1,
+                                     device="cuda"))
+    trace = Trace(capacity=TRACE_CAPACITY)
+    server = TaskServer(reg, num_lanes=2,
+                        config=SchedulerConfig(num_workers=SHARD_W["workers"],
+                                               fetch_size=SHARD_W["fetch"]),
+                        trace=trace, device="cuda",
+                        shard_devices=[torch.device("cuda", 0)] * 4)
+    server.submit(JobSpec("bfs", "rmat", {"source": source}, shards=4))
+    server.submit(JobSpec("bfs", "small", {"source": 0}))
+    window = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with first_window_profiled(window):
+        res = server.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    info = s4["info"]
+    if not np.array_equal(res.results[0], dist.cpu().numpy()):
+        raise AssertionError("the sharded server job's dist differs from "
+                             "[4]'s")
+    doc = next(d for d in trace.metrics if d["kind"] == "shard_run")
+    tel = res.telemetry[0]
+    mine = {"rounds": doc["rounds"], "work": tel.work,
+            "dropped": doc["dropped"] + doc["route_dropped"],
+            "exchanged": doc["exchanged"], "donated": doc["donated"],
+            "steal_rounds": doc["steal_rounds"],
+            "mis_routed": doc["mis_routed"],
+            "occupancy_balance": doc["occupancy_balance"],
+            "exchanged_row": doc["exchanged_row"],
+            "exchanged_col": doc["exchanged_col"],
+            "payload_ints": doc["payload_ints"],
+            "padding_ints": doc["padding_ints"],
+            "wire_ints": doc["wire_ints"],
+            "deferred": doc["deferred_delivered"],
+            "overlap_rounds": doc["overlap_rounds"],
+            "overlap_occupancy": doc["overlap_occupancy"]}
+    if mine != {k: info[k] for k in mine} or tel.rounds_active != \
+            info["rounds"] or tel.dropped != info["dropped"] or \
+            tel.items_processed != doc["items_processed"]:
+        raise AssertionError(f"the sharded job's telemetry differs from "
+                             f"the untraced s4 drain's: {mine} vs {info}")
+    rows = [r for r in trace.records if r["engine"] == "server.job0.sharded"]
+    if len(rows) != 4 * info["rounds"] or trace.truncated \
+            or sum(r["pops"] for r in rows) != doc["items_processed"] \
+            or sum(r["exchanged"] for r in rows) != info["exchanged"]:
+        raise AssertionError(f"the sharded job's rows: {len(rows)} for "
+                             f"{info['rounds']} rounds x 4, sums "
+                             f"{sum(r['pops'] for r in rows)} pops, "
+                             f"{sum(r['exchanged'] for r in rows)} exchanged")
+    steps = -(-info["rounds"] // POLL_EVERY) * POLL_EVERY
+    tenant = server.jobs[1]
+    implied = shard_launches("bfs", "s4", steps)
+    implied["lbs"] += B1_PER_STEP["bfs"] * tenant.lane_steps
+    implied["compact"] += tenant.lane_steps + tenant.empty_steps + 1
+    if counts != implied or res.stats.sharded_jobs != 1 \
+            or res.stats.sharded_rounds != info["rounds"]:
+        raise AssertionError(f"the sharded server run: launches {counts}, "
+                             f"implied {implied}; stats {res.stats}")
+    prof_rows = sorted(device_rows(window["prof"]), key=lambda r: -r[1])
+    dev_ms = sum(ms for _, ms, _ in prof_rows)
+    ops = sum(calls for _, _, calls in prof_rows) / POLL_EVERY
+    busy = dev_ms / (1e3 * window["secs"]) if dev_ms > 0 else None
+    log(f"    server: JobSpec(shards=4) BFS on rmat from [4]'s source beside "
+        f"a fused BFS on rmat({small_scale}), traced: dist equals [4]'s, "
+        f"telemetry the untraced s4 drain's; {len(rows)} rows = "
+        f"{info['rounds']} "
+        f"rounds x 4, pops and exchanged sums equal the run's; launches "
+        f"{counts} as the {steps} steps and the tenant's "
+        f"{tenant.lane_steps} lane steps imply; sharded_jobs 1; server run "
+        f"{secs:.3f} s (its first {POLL_EVERY} steps under the profiler, "
+        f"{window['secs']:.3f} s of it) against the untraced s4 drain's "
+        f"{s4['seconds']:.3f} s  [{card}]")
+    log(f"    the server job's first {POLL_EVERY} steps under the profiler: "
+        f"{ops:.1f} device ops a step, busy "
+        f"{busy if busy is None else round(busy, 3)}, "
+        f"{1e3 * window['secs'] / POLL_EVERY:.2f} ms a step  [{card}]")
+    return {"launches": counts, "steps": steps, "seconds": secs,
+            "tenant_lane_steps": tenant.lane_steps, "rows": len(rows),
+            "window_seconds": window["secs"], "window_device_ms": dev_ms,
+            "device_ops_a_step": ops, "busy": busy,
+            "profile_rows": prof_rows[:12]}
+
+
+def sharded_stream_full(graph, deltas, source: int, dist,
+                        batch_dists: list, card: str) -> dict:
+    """[4j](b): BFS on ``sharded.persistent`` s4 over [4g]'s delta log,
+    incremental, with [4g]'s compaction knobs: each batch's dist equals
+    [4g]'s ``single.megakernel`` stream's at that batch (batch 0's is
+    [4]'s); nothing mis-routed or dropped.  Batch 0 is the whole s4 drain
+    on the base graph: its ``ShardRunStats`` and wall are (a)'s untraced
+    reference."""
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.runtime import stream_execute
+
+    cfg = shard_config("s4")
+    dists, reshards, stats = [], [], []
+    with batch_ends(lambda st: dists.append(st.dist.clone())), \
+            timed_reshards(reshards), shard_stats(stats):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = stream_execute("bfs", graph, deltas, cfg,
+                             params={"source": source},
+                             mesh=shard_mesh(cfg, "cuda"), **STREAM_KNOBS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    if len(dists) != len(batch_dists) or not all(
+            torch.equal(a, b) for a, b in zip(dists, batch_dists)):
+        bad = [b for b, (x, y) in enumerate(zip(dists, batch_dists))
+               if not torch.equal(x, y)]
+        raise AssertionError(f"the sharded stream's dist differs from "
+                             f"[4g]'s at batches {bad}")
+    if not torch.equal(dists[0], dist):
+        raise AssertionError("the sharded stream's batch 0 (the whole s4 "
+                             "drain) differs from [4]'s dist")
+    if res.info["mis_routed"] or res.info["dropped"]:
+        raise AssertionError(f"the sharded stream: {res.info}")
+    # BFS's commit and reseed run no kernel: every launch is a shard body's
+    steps = [-(-st.rounds // POLL_EVERY) * POLL_EVERY for st in stats]
+    implied = shard_launches("bfs", "s4", sum(steps))
+    if counts != implied:
+        raise AssertionError(f"the sharded stream's launches {counts}, the "
+                             f"{sum(steps)} predicated steps imply {implied}")
+    rows = log_batches("BFS sharded.persistent s4", res, card)
+    for row, rs in zip(rows, reshards):
+        row["reshard_s"], row["dirty_shards"] = rs["seconds"], rs["dirty"]
+        log(f"      batch {row['batch']}: reshard {rs['seconds']:.4f} s "
+            f"(in its commit seconds), rebuilt shards {rs['dirty']}  "
+            f"[{card}]")
+    info = {k: v for k, v in res.info.items() if k != "commit_seconds"}
+    # batch 0 is one run_sharded call (no snapshots): the untraced s4 drain
+    first = stats[0]
+    s4 = {"seconds": res.batches[0].drain_seconds, "stats": first,
+          "info": {"rounds": first.rounds,
+                   "work": res.batches[0].work,
+                   "dropped": first.dropped + first.route_dropped,
+                   "exchanged": first.exchanged, "donated": first.donated,
+                   "steal_rounds": first.steal_rounds,
+                   "mis_routed": first.mis_routed,
+                   "occupancy_balance": first.occupancy_balance,
+                   "exchanged_row": first.exchanged_row,
+                   "exchanged_col": first.exchanged_col,
+                   "payload_ints": first.payload_ints,
+                   "padding_ints": first.padding_ints,
+                   "wire_ints": first.wire_ints,
+                   "deferred": first.deferred_delivered,
+                   "overlap_rounds": first.overlap_rounds,
+                   "overlap_occupancy": first.overlap_occupancy}}
+    log(f"    BFS stream sharded.persistent s4: every batch's dist equals "
+        f"[4g]'s single.megakernel stream's, batch 0's [4]'s; info {info}; "
+        f"launches {counts} as its {sum(steps)} predicated steps imply; "
+        f"batch 0, the whole s4 drain: {first.rounds} rounds, "
+        f"{s4['seconds']:.3f} s; the stream {secs:.3f} s  [{card}]")
+    return {"seconds": secs, "launches": counts, "info": info,
+            "batches": rows, "steps": steps, "s4": s4}
+
+
+def sharded_small(small: dict, card: str, small_scale: int) -> dict:
+    """[4j](c): at rmat(14) the traced 2x2 discrete BFS and the sharded
+    PageRank stream on the card against the CPU child's, bitwise, the
+    stream's launches as its steps and reseeds imply; a sharded BFS
+    stream snapshotted and resumed on the card, the resumed run
+    bit-identical to the snapshotted one (the CPU tests hold a
+    snapshotted stream equal to an uninterrupted one)."""
+    from repro_torch.core.scheduler import POLL_EVERY
+    from repro_torch.graph import edge_delta_stream, rmat
+    from repro_torch.runtime import stream_execute
+
+    g_small = rmat(small_scale, edge_factor=16, seed=1, device="cuda")
+    s_source = int(torch.argmax(g_small.degrees()))
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    traced = traced_small(g_small, s_source, "cuda")
+    counts = read_counts()
+    want = small["bfs.2x2.traced"]
+    same_outcome(f"rmat({small_scale}) traced 2x2 discrete BFS", traced,
+                 want)
+    if traced["rows"] != want["rows"] or [
+            d for d in traced["docs"] if d["kind"] == "shard_run"] != [
+            d for d in want["docs"] if d["kind"] == "shard_run"]:
+        raise AssertionError("the traced 2x2 BFS's rows or shard_run doc "
+                             "differ from the CPU's")
+    if not (counts["lbs"] and counts["compact"]) or counts != only(
+            lbs=counts["lbs"], compact=counts["compact"]):
+        raise AssertionError(f"the traced 2x2 BFS's launches: {counts}")
+    out["traced"] = {"seconds": time.perf_counter() - t0,
+                     "rows": len(traced["rows"]),
+                     "rounds": traced["info"]["rounds"], "launches": counts}
+    stats = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with shard_stats(stats):
+        outcome_, records, info = shard_stream_small(g_small, "cuda")
+    counts = read_counts()
+    w_out, w_records, w_info = small["pagerank.stream"]
+    if not all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(outcome_["leaves"], w_out["leaves"])) \
+            or records != w_records or info != w_info:
+        raise AssertionError(f"the rmat({small_scale}) sharded PageRank "
+                             f"stream differs from the CPU's: {info} vs "
+                             f"{w_info}")
+    # the shard bodies at every predicated step, and the reseed's float64
+    # sums: once, and once a decay sweep, an incremental batch
+    steps = sum(-(-st.rounds // POLL_EVERY) * POLL_EVERY for st in stats)
+    reseed_sums = sum(1 + r["reseed_sweeps"] for r in records
+                      if r["incremental"])
+    implied = shard_launches("pagerank", "s4", steps)
+    implied["ordered_scatter_add"] += reseed_sums
+    if counts != implied:
+        raise AssertionError(f"the sharded PageRank stream's launches "
+                             f"{counts}, its {steps} predicated steps and "
+                             f"{reseed_sums} reseed sums imply {implied}")
+    out["pagerank_stream"] = {"seconds": time.perf_counter() - t0,
+                              "info": info, "launches": counts,
+                              "steps": steps, "reseed_sums": reseed_sums}
+    # snapshots every 4 rounds of a sharded BFS stream, resumed in-process
+    snap_dir = ROOT / "build" / "chip_smoke_shard_snapshots"
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    cfg = shard_config("s4")
+    deltas = edge_delta_stream(g_small, **SHARD_STREAM_SMALL)
+
+    def bfs_stream(**kw):
+        return stream_execute("bfs", g_small, deltas, cfg,
+                              params={"source": s_source},
+                              mesh=shard_mesh(cfg, "cuda"), **STREAM_KNOBS,
+                              snapshot_every=4, checkpoint_dir=str(snap_dir),
+                              keep=1000, **kw)
+
+    t0 = time.perf_counter()
+    ticks = []
+    whole = bfs_stream(snapshot_hook=lambda t, b: ticks.append((t, b)))
+    tick, batch = [t for t in ticks if t[1] == 1][-1]
+    for t, _ in ticks:
+        if t > tick:
+            shutil.rmtree(snap_dir / f"snap_{t}")
+    resumed = bfs_stream(resume=True)
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    if resumed.info["resumed_at"] != batch \
+            or not same_leaves(resumed.state, whole.state) \
+            or records_of(resumed) != records_of(whole)[batch:]:
+        raise AssertionError(f"the sharded stream resumed from snapshot "
+                             f"{tick} differs: {resumed.info}")
+    out["resume"] = {"seconds": time.perf_counter() - t0,
+                     "snapshots": len(ticks), "resumed_at": batch}
+    log(f"    rmat({small_scale}) on the card equal to the CPU bit for bit: "
+        f"the traced 2x2 discrete BFS ({traced['info']['rounds']} rounds, "
+        f"{len(traced['rows'])} rows, the shard_run doc; launches "
+        f"{out['traced']['launches']}), the sharded PageRank stream (state, "
+        f"records, info; {info['rounds']} rounds; launches {counts} as its "
+        f"{steps} steps and {reseed_sums} reseed sums imply); the sharded "
+        f"BFS stream resumed from snapshot {tick} of {len(ticks)} (batch "
+        f"{batch}) bit-identical to the snapshotted run  [{card}]")
+    return out
+
+
+def sharded_more_path(graph, source: int, dist, sharded: dict, stream: dict,
+                      children: dict, card: str, small_scale: int) -> dict:
+    """Phase 4j: the sharded stream, sharded server jobs, the CLI's
+    sharding flags and sharded tracing on four shards of one card -- a
+    traced sharded server job, the sharded stream over [4g]'s log, the
+    rmat(14) cells against the CPU, the sharding CLI on the card against
+    the CPU (its CPU child started after [2])."""
+    t_start = time.perf_counter()
+    out = {"stream": sharded_stream_full(graph, stream.pop("log"), source,
+                                         dist, stream.pop("batch_dists"),
+                                         card)}
+    s4 = out["stream"].pop("s4")
+    out["s4_untraced"] = {"seconds": s4["seconds"], "info": s4["info"]}
+    out["server_job"] = sharded_server_job(graph, source, dist, s4, card,
+                                           small_scale)
+    # the CLI on the card runs beside the small cells (as [4h]'s CLI child
+    # runs beside its cells), not beside the timed full-width runs
+    cli = start_shard_cli("cuda")
+    out["small"] = sharded_small(children.pop("small_result"), card,
+                                 small_scale)
+    card_out, card_secs = wait_shard_cli(cli)
+    cpu_out, cpu_secs = wait_shard_cli(children["cli"])
+
+    def table(text):
+        return [line.split(" wall=")[0] for line in text.splitlines()]
+
+    if table(card_out) != table(cpu_out):
+        raise AssertionError(f"the sharding CLI on the card differs from "
+                             f"the CPU's:\n{card_out}\n---\n{cpu_out}")
+    log(f"    CLI `{' '.join(SHARD_CLI)} --device cuda --shard-devices "
+        f"cuda:0,cuda:0,cuda:0,cuda:0`: its table equals --device cpu's, "
+        f"wall aside (the card's child {card_secs:.1f} s; the CPU's, "
+        f"started after [2], read {cpu_secs:.1f} s after its start)  "
+        f"[{card}]")
+    for line in card_out.splitlines()[:12]:
+        log(f"      {line}")
+    out["cli"] = {"seconds": card_secs, "cpu_read_after": cpu_secs,
+                  "stdout": card_out}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"    [4j] took {out['seconds']:.1f} s  [{card}]")
     return out
 
 
@@ -4132,7 +4646,8 @@ def main() -> int:
     # and [4i]'s CPU reference: the full-width first rounds, the small cells
     shard_children = {"full": start_shard_child("full", args.scale),
                       "small": start_shard_child("small",
-                                                 min(args.scale, 14))}
+                                                 min(args.scale, 14)),
+                      "cli": start_shard_cli("cpu")}
     sass = flash_sass()
     log(f"  B5 (csrc/flash_attention.cu) SASS: "
         + ", ".join(f"{op} {n}" for op, n in sass.items()))
@@ -4267,13 +4782,22 @@ def main() -> int:
     server = server_path(graph, grid, source, want, want_grid, cpu_children,
                          out_dir, card, min(args.scale, 14))
     log(f"[4i] the sharded topology, four shards on one card: BFS "
-        f"rmat({args.scale}) from 4's source on a 1-D strict mesh and a 2x2 "
-        f"deferred, compressed, stealing mesh (B1, B2 a shard body and "
-        f"push); PageRank (and the ordered scatter-add) and coloring on the "
-        f"1-D mesh over their first {SHARD_FIRST_ROUNDS} rounds; "
+        f"rmat({args.scale}) from 4's source on a 2x2 deferred, compressed, "
+        f"stealing mesh (B1, B2 a shard body and push; the 1-D strict "
+        f"mesh's drain runs in [4j]); PageRank (and the ordered "
+        f"scatter-add) and coloring on the 1-D mesh over their first {SHARD_FIRST_ROUNDS} rounds; "
         f"rmat({min(args.scale, 14)}) whole drains against the CPU")
     sharded = sharded_path(graph, source, state.dist, shard_children, card,
                            min(args.scale, 14))
+    log(f"[4j] sharded streams, jobs and tracing, four shards on one card: "
+        f"a traced JobSpec(shards=4) BFS on rmat({args.scale}) beside a "
+        f"fused tenant; the sharded BFS stream over [4g]'s log; at "
+        f"rmat({min(args.scale, 14)}) a traced 2x2 drain and a sharded "
+        f"PageRank stream against the CPU, a snapshot resumed; the "
+        f"sharding CLI on the card against the CPU")
+    sharded_more = sharded_more_path(graph, source, state.dist, sharded,
+                                     stream, shard_children, card,
+                                     min(args.scale, 14))
 
     log(f"[5] timing on {card}")
     k = torch.arange(budget, dtype=torch.int32, device=dev)
@@ -4842,7 +5366,14 @@ def main() -> int:
                    for cell, run in sharded["bfs"].items()},
                 **{f"{algo} s4 first {SHARD_FIRST_ROUNDS} rounds":
                    sharded[algo]["launches"][name]
-                   for algo in ("pagerank", "coloring")}}
+                   for algo in ("pagerank", "coloring")},
+                "server job s4 traced (a fused tenant beside)":
+                sharded_more["server_job"]["launches"][name],
+                "bfs stream s4": sharded_more["stream"]["launches"][name],
+                f"pagerank stream s4 at rmat({min(args.scale, 14)})":
+                sharded_more["small"]["pagerank_stream"]["launches"][name],
+                f"bfs 2x2 traced discrete at rmat({min(args.scale, 14)})":
+                sharded_more["small"]["traced"]["launches"][name]}
     timed_alone = ("lbs", "compact", "csr_stream", "csr_stream.slotted",
                    "ordered_scatter_add", "ordered_scatter_add.f64")
     for kern in (k for k in kernels if k["name"] in timed_alone):
@@ -4893,6 +5424,7 @@ def main() -> int:
         "streaming": stream,
         "server": server,
         "sharded": sharded,
+        "sharded_more": sharded_more,
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started

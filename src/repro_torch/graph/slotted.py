@@ -246,6 +246,21 @@ class SlottedCSR:
         return int(self.ovl_row.numel())
 
     # ------------------------------------------------------------ reads
+    def row_ptr64(self) -> torch.Tensor:
+        """Canonical int64 ``[n+1]`` degree prefix sums, on the graph's
+        device."""
+        rp = torch.zeros(self.n + 1, dtype=_I64, device=self.device)
+        rp[1:] = torch.cumsum(self.deg.to(_I64), 0)
+        return rp
+
+    def range_cols(self, lo: int, hi: int) -> torch.Tensor:
+        """Concatenated canonical neighbor lists of rows ``[lo, hi)`` (int32
+        on the graph's device, O(edges in range)): the sharded per-owner
+        patch's row extraction (``stream/ingest.reshard``).  One two-level
+        gather over the range, no loop over rows."""
+        rows = torch.arange(lo, max(lo, hi), dtype=_I64, device=self.device)
+        return row_neighbors(self.view(), rows)[1].to(_I32)
+
     def to_csr(self) -> CSRGraph:
         """Canonical materialization -- bit-identical to ``from_edges`` on
         the same edge set."""
@@ -256,8 +271,7 @@ class SlottedCSR:
         """Device snapshot (cached until the next mutation)."""
         if self._view is None:
             n, dev = self.n, self.device
-            rp = torch.zeros(n + 1, dtype=_I64, device=dev)
-            rp[1:] = torch.cumsum(self.deg.to(_I64), 0)
+            rp = self.row_ptr64()
             ovl_ptr = torch.zeros(n + 1, dtype=_I64, device=dev)
             ovl_ptr[1:] = torch.cumsum(
                 torch.bincount(self.ovl_row.to(_I64), minlength=n), 0)

@@ -67,6 +67,14 @@ def _devices(n: int, devices: Optional[Sequence], purpose: str):
     return devices
 
 
+def parse_devices(text: str) -> Tuple[torch.device, ...]:
+    """A comma-separated device list (``"cuda:0,cuda:0"``) as devices."""
+    names = [t.strip() for t in text.split(",") if t.strip()]
+    if not names:
+        raise ValueError(f"no device in {text!r}")
+    return tuple(torch.device(t) for t in names)
+
+
 def make_shard_mesh(n: int, devices: Optional[Sequence] = None) -> ShardMesh:
     """1-D mesh of ``n`` shards: each owns one vertex block, one queue
     replica and one lane of every collective."""

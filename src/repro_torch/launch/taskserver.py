@@ -15,9 +15,15 @@ Builds one scale-free (R-MAT) and one mesh (2-D grid) graph on the device,
 submits a mixed batch of BFS / PageRank / coloring jobs against them and
 drains everything through one TaskServer, printing per-job telemetry
 (latency, rounds, occupancy, overwork) and the server totals.
-``--compare-sequential`` also runs the tenant-at-a-time baseline.  The
-sharding flags (``--shards > 1``, ``--mesh``, ``--overlap``,
-``--compress``) come with ROADMAP A12b and exit with an error.
+``--compare-sequential`` also runs the tenant-at-a-time baseline.
+``--shards S`` (or ``--mesh R C``) makes the BFS jobs sharded jobs over S
+shards, with ``--overlap`` (deferred delivery) and ``--compress`` (the
+wire codec); on ``--device cuda`` they take one card a shard unless
+``--shard-devices`` names the devices:
+
+  PYTHONPATH=src python -m repro_torch.launch.taskserver --jobs 3 \\
+      --scale 6 --grid-side 8 --shards 4 --mesh 2 2 --overlap --compress \\
+      --shard-devices cuda:0,cuda:0,cuda:0,cuda:0 --stream 2
 """
 from __future__ import annotations
 
@@ -55,16 +61,19 @@ def build_registry(scale: int, grid_side: int, seed: int,
 
 
 def mixed_specs(n_jobs: int, registry: JobRegistry, eps: float,
-                seed: int, stream: int = 0, stream_batch: int = 32,
+                seed: int, shards: int = 1,
+                stream: int = 0, stream_batch: int = 32,
                 snapshot_every: int = 0, checkpoint_dir: str | None = None,
                 resume: bool = False, compact_every: int = 0,
                 overlay_slack: float = 0.25) -> list[JobSpec]:
     """Round-robin over algorithms x graphs, sources spread over vertices.
 
-    With ``stream > 0`` the BFS jobs become streaming jobs, each over a
-    seeded delta log (``graph.edge_delta_stream``, ``stream`` batches of
-    ``stream_batch`` edge ops) with the given snapshot/resume posture
-    (per-job subdirectories under ``checkpoint_dir``).
+    With ``shards > 1`` the BFS jobs become sharded single-tenant jobs while
+    PageRank and coloring stay in the fused rounds.  With ``stream > 0``
+    the BFS jobs become streaming jobs (sharded ones with ``shards > 1``),
+    each over a seeded delta log (``graph.edge_delta_stream``, ``stream``
+    batches of ``stream_batch`` edge ops) with the given snapshot/resume
+    posture (per-job subdirectories under ``checkpoint_dir``).
     """
     from ..graph.generators import edge_delta_stream
     from ..stream import StreamSpec
@@ -92,7 +101,9 @@ def mixed_specs(n_jobs: int, registry: JobRegistry, eps: float,
                 checkpoint_dir=job_dir, resume=resume and job_dir is not None,
                 compact_every=compact_every, overlay_slack=overlay_slack)
         specs.append(JobSpec(algorithm, gname, params,
-                             weight=1.0 + (i % 3), stream=stream_spec))
+                             weight=1.0 + (i % 3),
+                             shards=shards if algorithm == "bfs" else 1,
+                             stream=stream_spec))
     return specs
 
 
@@ -114,6 +125,9 @@ def print_telemetry(result) -> None:
           f"wall={s.wall_seconds:.2f}s "
           f"backpressure={s.backpressure_events} "
           f"deferred_admissions={s.deferred_admissions}")
+    if s.sharded_jobs:
+        print(f"sharded phases: {s.sharded_jobs} jobs, "
+              f"{s.sharded_rounds} device rounds")
     if s.streaming_jobs:
         print(f"streaming phases: {s.streaming_jobs} jobs, "
               f"{s.stream_batches} delta batches")
@@ -167,14 +181,23 @@ def main(argv=None) -> None:
                     help="torch device for the graphs and the server's "
                          "queue (default cuda)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="sharded BFS jobs: ROADMAP A12b, not ported")
+                    help="run the BFS jobs as sharded single-tenant drains "
+                         "over N shards; on --device cuda they take "
+                         "cuda:0..N-1 unless --shard-devices names them")
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("R", "C"),
-                    help="a 2-D device mesh: ROADMAP A12b, not ported")
+                    help="shard the BFS jobs over a 2-D R x C mesh (two "
+                         "per-axis exchange hops); implies --shards R*C")
     ap.add_argument("--overlap", action="store_true",
-                    help="deferred exchange delivery: ROADMAP A12b")
+                    help="deferred exchange delivery: routed tasks are "
+                         "staged one round (defer_rounds=1)")
     ap.add_argument("--compress", action="store_true",
-                    help="compressed exchange payloads: ROADMAP A12b")
+                    help="delta-compress the exchange payloads "
+                         "(shard/codec.py); lossless")
+    ap.add_argument("--shard-devices", default=None, metavar="DEVS",
+                    help="comma-separated devices of the shards, shard d on "
+                         "the d-th, e.g. cuda:0,cuda:0,cuda:0,cuda:0 to "
+                         "stack four shards on one card")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
                     help="turn the BFS jobs into streaming jobs over N "
                          "delta batches")
@@ -219,12 +242,25 @@ def main(argv=None) -> None:
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(name)s: %(message)s")
 
-    for flag, given in (("--shards", args.shards > 1),
-                        ("--mesh", args.mesh is not None),
-                        ("--overlap", args.overlap),
-                        ("--compress", args.compress)):
-        if given:
-            ap.error(f"{flag}: sharded jobs come with ROADMAP A12b")
+    mesh_shape = tuple(args.mesh) if args.mesh else None
+    if mesh_shape:
+        rows, cols = mesh_shape
+        if args.shards > 1 and args.shards != rows * cols:
+            ap.error(f"--shards {args.shards} contradicts "
+                     f"--mesh {rows} {cols} (= {rows * cols} shards)")
+        args.shards = rows * cols
+    shard_devices = None
+    if args.shard_devices:
+        from .mesh import parse_devices
+
+        shard_devices = parse_devices(args.shard_devices)
+        if len(shard_devices) < args.shards:
+            ap.error(f"--shard-devices names {len(shard_devices)} devices "
+                     f"for --shards {args.shards}")
+    elif args.shards > 1 and args.device != "cpu":
+        from .mesh import require_devices
+
+        require_devices(args.shards, purpose=f"--shards {args.shards}")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     if args.snapshot_every and not args.checkpoint_dir:
@@ -232,7 +268,8 @@ def main(argv=None) -> None:
     registry = build_registry(args.scale, args.grid_side, args.seed,
                               device=args.device)
     specs = mixed_specs(args.jobs, registry, args.eps, args.seed,
-                        stream=args.stream, stream_batch=args.stream_batch,
+                        shards=args.shards, stream=args.stream,
+                        stream_batch=args.stream_batch,
                         snapshot_every=args.snapshot_every,
                         checkpoint_dir=args.checkpoint_dir,
                         resume=args.resume,
@@ -249,11 +286,17 @@ def main(argv=None) -> None:
         # an explicit granularity segment -- .g1 included -- wins
         if len(args.exec_policy.split(".")) == 3:
             granularity = policy.granularity
+    if args.autotune and (mesh_shape or args.overlap or args.compress):
+        # the tuner searches launch shapes, not the exchange's posture
+        ap.error("--mesh/--overlap/--compress need an explicit config; "
+                 "drop --autotune")
     config = None if args.autotune else SchedulerConfig(
         num_workers=args.workers, fetch_size=args.fetch,
         backend=args.backend, topology=topology, persistent=persistent,
         kernel=kernel, granularity=granularity,
-        split_threshold=args.split_threshold)
+        split_threshold=args.split_threshold,
+        mesh_shape=mesh_shape, defer_rounds=1 if args.overlap else 0,
+        compress=args.compress)
     autotuner = (Autotuner(cache_path=args.autotune_cache)
                  if args.autotune else None)
 
@@ -266,7 +309,8 @@ def main(argv=None) -> None:
 
     server = TaskServer(registry, num_lanes=args.lanes, config=config,
                         policy=args.policy, autotuner=autotuner,
-                        trace=trace, device=args.device)
+                        trace=trace, device=args.device,
+                        shard_devices=shard_devices)
     for spec in specs:
         server.submit(spec)
     print(f"submitted {len(specs)} jobs to {args.lanes} lanes "
@@ -295,7 +339,8 @@ def main(argv=None) -> None:
             seq_config = autotuner.recommend_for_mix(
                 [(s.algorithm, registry.graph(s.graph)) for s in specs])
         seq = serve_sequential(registry, specs, config=seq_config,
-                               device=args.device)
+                               device=args.device,
+                               shard_devices=shard_devices)
         print(f"sequential: rounds={seq.stats.rounds} "
               f"occupancy={seq.stats.occupancy:.3f} "
               f"wall={seq.stats.wall_seconds:.2f}s")

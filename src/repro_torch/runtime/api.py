@@ -29,8 +29,9 @@ carry as a fifth leaf under every single/fused policy and records one row
 per round (:func:`instrument_step`); a megakernel cell's drain kernel
 writes the rows itself (its traced mode).  A plain ``list`` is the
 discrete driver's legacy trace: ``(size_before, items)`` pairs, or on a
-sharded cell the reference's per-round dicts.  Sharded tracing, sharded
-streams and sharded server jobs come with ROADMAP A12b and raise.
+sharded cell the reference's per-round dicts.  On a sharded cell a
+``Trace`` gives each shard a ring on its device (``shard/driver``): one
+row a shard a round, and the ``shard_run`` doc.
 """
 from __future__ import annotations
 
@@ -49,10 +50,6 @@ from ..core.scheduler import (QueueOps, RunStats, SchedulerConfig,
 from ..obs import Trace
 from .policy import ExecutionPolicy, policy_of
 from .program import AtosProgram, ProgramContext
-
-#: what the sharded topology does not run yet
-A12B = "ROADMAP A12b"
-
 
 class ExecutionResult(NamedTuple):
     state: Any
@@ -258,10 +255,6 @@ def _run_sharded(program: AtosProgram, graph, cfg: SchedulerConfig,
     (drops include the exchange's) and the reference's ``info`` keys."""
     from ..shard import run_sharded  # lazy: shard imports this package
 
-    if isinstance(trace, Trace):
-        raise NotImplementedError(
-            f"sharded tracing (trace=Trace() under {policy_of(cfg)}) is not "
-            f"ported yet: it comes with {A12B}")
     state, sstats = run_sharded(
         program, graph, cfg, queue_capacity=queue_capacity,
         route_width=route_width, mesh=mesh, trace=trace)
@@ -309,7 +302,8 @@ def execute(program: AtosProgram, graph, cfg: SchedulerConfig, *,
     the persistent and discrete strategies, one for the megakernel; a
     sharded ``info`` carries the exchange, steal and wire meters.
     ``trace`` is a :class:`~repro_torch.obs.Trace` (every single/fused
-    policy: the rows, an ``execute {policy}`` span and a ``run`` doc), a
+    policy: the rows, an ``execute {policy}`` span and a ``run`` doc; a
+    sharded one: a row a shard a round and the ``shard_run`` doc), a
     ``list`` (the discrete driver's legacy trace; ignored by the other
     strategies, as in the reference) or None: exactly the untraced drain.
     """
@@ -369,9 +363,10 @@ def stream_execute(algorithm, graph, deltas, cfg: SchedulerConfig, *,
                    queue_capacity: Optional[int] = None,
                    incremental: bool = True, snapshot_every: int = 0,
                    checkpoint_dir: Optional[str] = None, keep: int = 3,
-                   resume: bool = False, snapshot_hook=None,
-                   trace: Optional[Trace] = None, compact_every: int = 0,
-                   overlay_slack: float = 0.25):
+                   resume: bool = False,
+                   route_width: Optional[int] = None, mesh=None,
+                   snapshot_hook=None, trace: Optional[Trace] = None,
+                   compact_every: int = 0, overlay_slack: float = 0.25):
     """Run ``algorithm`` as a long-lived streaming job over a mutating graph.
 
     Batch 0 drains the base ``graph``; each later batch commits one
@@ -379,15 +374,16 @@ def stream_execute(algorithm, graph, deltas, cfg: SchedulerConfig, *,
     (an O(touched rows) slotted-CSR commit, ``graph/slotted.py``), re-seeds
     only the dirtied frontier (the program's ``dirty_seeds`` rule, unless
     ``incremental=False`` asks for the full reseed) and drains again under
-    the policy ``cfg`` resolves to, on the graph's device.
+    the policy ``cfg`` resolves to, on the graph's device -- or, under the
+    sharded topology, on ``mesh`` (default ``cuda:0 .. cuda:S-1``), with a
+    partition patched per owner after each commit and ``route_width`` as
+    in :func:`execute`.
     ``compact_every`` / ``overlay_slack`` steer the slab compactions.
     ``snapshot_every > 0`` (with ``checkpoint_dir``) writes crash-consistent
     snapshots every that many rounds; ``resume=True`` continues from the
     newest one.  ``algorithm`` is a registered program name (an
     :class:`AtosProgram` is taken for its name: the program is rebuilt per
-    batch).  The sharded topology raises ``NotImplementedError`` naming
-    ROADMAP A12b before any commit.  Returns a :class:`~repro_torch.stream.
-    driver.StreamResult`.
+    batch).  Returns a :class:`~repro_torch.stream.driver.StreamResult`.
     """
     from ..stream.driver import run_stream  # lazy: stream imports runtime
 
@@ -397,5 +393,6 @@ def stream_execute(algorithm, graph, deltas, cfg: SchedulerConfig, *,
         algorithm, graph, deltas, cfg, params=params,
         queue_capacity=queue_capacity, incremental=incremental,
         snapshot_every=snapshot_every, checkpoint_dir=checkpoint_dir,
-        keep=keep, resume=resume, snapshot_hook=snapshot_hook, trace=trace,
+        keep=keep, resume=resume, route_width=route_width, mesh=mesh,
+        snapshot_hook=snapshot_hook, trace=trace,
         compact_every=compact_every, overlay_slack=overlay_slack)

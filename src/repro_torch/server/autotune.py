@@ -66,7 +66,10 @@ _BASE_GRID: Tuple[SchedulerConfig, ...] = (
 #: alias one of them and waste calibration runs).
 BACKEND_GRID: Tuple[str, ...] = ("torch", "cuda")
 
-#: the searched execution topologies; ``sharded`` comes with ROADMAP A12b.
+#: the searched execution topologies.  ``sharded`` stays out, as in the
+#: reference: it needs a mesh the calibration host may not have, and it
+#: wins on capacity, not on calibration wall time; a cache that records a
+#: sharded config parses all the same.
 TOPOLOGY_GRID: Tuple[str, ...] = ("single", "fused")
 
 #: the searched task granularities.

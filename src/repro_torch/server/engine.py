@@ -32,7 +32,14 @@ finishes.
 (tenants are admitted and finalized between rounds): the server logs a
 warning and runs the per-round steps, and batch tenants launch no drain
 kernel; streaming tenants' batch drains do run the drain kernels.
-``JobSpec(shards > 1)`` is refused at submit: sharded jobs are ROADMAP A12b.
+A ``JobSpec(shards > 1)`` owns a mesh for its whole drain, so it runs as a
+phase of its own before the fused rounds (``shard.run_sharded``), as a
+streaming job does; a streaming job with ``shards > 1`` drains each batch
+on the mesh.  A server built on the CPU puts a job's shards on the CPU; on
+the card a job of S shards takes ``cuda:0 .. cuda:S-1`` (and raises on
+fewer cards) unless ``shard_devices=`` names the devices, for example
+``[torch.device("cuda:0")] * 4``.  The server never stacks shards by
+itself.
 """
 from __future__ import annotations
 
@@ -94,8 +101,8 @@ class ServerStats:
     backpressure_events: int = 0
     deferred_admissions: int = 0
     wavefront: int = 0
-    sharded_jobs: int = 0          # the reference's; 0 until ROADMAP A12b
-    sharded_rounds: int = 0
+    sharded_jobs: int = 0          # jobs served as sharded phases
+    sharded_rounds: int = 0        # device rounds spent in those phases
     streaming_jobs: int = 0        # jobs served as streaming phases
     stream_batches: int = 0        # delta batches drained in those phases
 
@@ -150,8 +157,14 @@ class TaskServer:
         strict_drops: bool = True,
         trace=None,
         device="cuda",
+        shard_devices=None,
     ) -> None:
         self.device = resolve_device(device)
+        #: the devices a sharded job's shards take, shard d on
+        #: ``shard_devices[d]``; None: the CPU for a CPU server, else one
+        #: card a shard (``launch.mesh.make_shard_mesh``)
+        self.shard_devices = (None if shard_devices is None else
+                              [torch.device(d) for d in shard_devices])
         self.registry = registry
         self.num_lanes = num_lanes
         self._config = config
@@ -188,10 +201,6 @@ class TaskServer:
 
     def submit(self, spec: JobSpec) -> int:
         """Queue a job for admission; returns its job_id."""
-        if spec.shards > 1:
-            raise NotImplementedError(
-                f"JobSpec(shards={spec.shards}) asks for a sharded drain, "
-                f"which comes with ROADMAP A12b")
         job_id = self._next_job_id()
         self._jobs.append(Job(job_id=job_id, program=None,
                               weight=spec.weight, spec=spec))
@@ -353,19 +362,93 @@ class TaskServer:
         job.lane = -1
         return mq
 
+    # -------------------------------------------------------- sharded jobs
+    def _shard_mesh(self, cfg: SchedulerConfig):
+        """The mesh a ``cfg.num_shards``-shard job runs on (see the module
+        docstring): ``shard_devices[:S]``, the CPU for a CPU server, or
+        ``cuda:0 .. cuda:S-1``."""
+        from ..launch.mesh import make_shard_mesh, make_shard_mesh2d
+
+        s = cfg.num_shards
+        devices = self.shard_devices
+        if devices is not None:
+            if len(devices) < s:
+                raise ValueError(
+                    f"a {s}-shard job needs {s} shard devices, but the "
+                    f"server was given {len(devices)}")
+            devices = devices[:s]
+        elif self.device.type == "cpu":
+            devices = [self.device] * s
+        if cfg.mesh_shape is None:
+            return make_shard_mesh(s, devices=devices)
+        return make_shard_mesh2d(*cfg.mesh_shape, devices=devices)
+
+    def _run_sharded(self, job: Job, cfg: SchedulerConfig,
+                     stats: ServerStats) -> None:
+        """Serve one ``shards > 1`` job as a sharded drain over its own
+        mesh: a phase before the fused rounds, not a lane inside them."""
+        from ..runtime.programs import build_program
+        from ..shard import run_sharded
+
+        spec = job.spec
+        graph = self.registry.graph(spec.graph)
+        scfg = dataclasses.replace(cfg, num_shards=spec.shards,
+                                   topology="sharded")
+        program = build_program(spec.algorithm, graph, scfg,
+                                params=dict(spec.params),
+                                queue_capacity=self._lane_capacity)
+        log.info("sharded job %d (%s on %s) over %d shards",
+                 job.job_id, spec.algorithm, spec.graph, spec.shards)
+        state, sstats = run_sharded(
+            program, graph, scfg, queue_capacity=self._lane_capacity,
+            mesh=self._shard_mesh(scfg), trace=self.trace,
+            trace_engine=f"server.job{job.job_id}.sharded")
+        job.result = _to_numpy(program.result(state))
+        tel = JobTelemetry(
+            job_id=job.job_id, algorithm=spec.algorithm, graph=spec.graph,
+            wavefront=scfg.wavefront * spec.shards,  # mesh-wide pop budget
+            ideal_work=program.ideal_work)
+        tel.admitted_round = tel.completed_round = 0
+        tel.rounds_active = sstats.rounds
+        tel.items_processed = sstats.items_processed
+        tel.work = program.work_of(state)
+        tel.dropped = sstats.dropped + sstats.route_dropped
+        job.telemetry = tel
+        if self.strict_drops and tel.dropped > 0:
+            raise RuntimeError(
+                f"sharded job {job.job_id} ({spec.algorithm} on "
+                f"{spec.graph}) dropped {tel.dropped} tasks to replica "
+                f"overflow — its result would be silently wrong.  Raise "
+                f"lane_capacity (or pass strict_drops=False).")
+        if sstats.mis_routed:
+            raise RuntimeError(
+                f"sharded job {job.job_id}: {sstats.mis_routed} tasks ran "
+                f"off their owner shard (routing invariant violated)")
+        job.status = "done"
+        stats.sharded_jobs += 1
+        stats.sharded_rounds += sstats.rounds
+        log.info("sharded job %d done in %d device rounds "
+                 "(exchanged=%d donated=%d balance=%.3f)",
+                 job.job_id, sstats.rounds, sstats.exchanged,
+                 sstats.donated, sstats.occupancy_balance)
+
     # ------------------------------------------------------ streaming jobs
     def _run_streaming(self, job: Job, cfg: SchedulerConfig,
                        stats: ServerStats) -> None:
         """Serve one streaming job (``spec.stream``) as a dedicated phase:
-        ``run_stream`` over the spec's delta log on the single topology,
-        under the config's kernel strategy (a megakernel batch drain is one
-        launch of the program's drain kernel)."""
+        ``run_stream`` over the spec's delta log under the config's kernel
+        strategy (a megakernel batch drain is one launch of the program's
+        drain kernel), on the single topology, or on the job's mesh when
+        ``shards > 1``."""
         from ..stream.driver import run_stream
 
         spec = job.spec
         stream = spec.stream
         graph = self.registry.graph(spec.graph)
-        scfg = dataclasses.replace(cfg, topology="single")
+        sharded = spec.shards > 1
+        scfg = (dataclasses.replace(cfg, num_shards=spec.shards,
+                                    topology="sharded")
+                if sharded else dataclasses.replace(cfg, topology="single"))
         log.info("streaming job %d (%s on %s): %d delta batches",
                  job.job_id, spec.algorithm, spec.graph, len(stream.deltas))
         res = run_stream(
@@ -376,13 +459,14 @@ class TaskServer:
             checkpoint_dir=stream.checkpoint_dir, resume=stream.resume,
             compact_every=stream.compact_every,
             overlay_slack=stream.overlay_slack,
+            mesh=self._shard_mesh(scfg) if sharded else None,
             trace=self.trace,
             trace_engine=f"server.job{job.job_id}.stream")
         job.result = _to_numpy(res.result)
         job.stream_result = res
         tel = JobTelemetry(
             job_id=job.job_id, algorithm=spec.algorithm, graph=spec.graph,
-            wavefront=scfg.wavefront, ideal_work=0)
+            wavefront=scfg.wavefront * spec.shards, ideal_work=0)
         tel.admitted_round = tel.completed_round = 0
         tel.rounds_active = res.info["rounds"]
         tel.items_processed = res.info["processed"]
@@ -421,8 +505,9 @@ class TaskServer:
     def run(self) -> ServerResult:
         """Drain every submitted job; returns per-job results + telemetry.
 
-        Streaming jobs are served first as dedicated phases; everything
-        else shares the fused multi-tenant rounds that follow.
+        Streaming jobs and sharded jobs are served first, in submission
+        order, as dedicated phases; everything else shares the fused
+        multi-tenant rounds that follow.
         """
         cfg = self._resolve_config()
         if getattr(cfg, "kernel", "auto") == "megakernel":
@@ -441,9 +526,12 @@ class TaskServer:
         ring = trace.ring(self.device) if trace is not None else None
         t0 = time.perf_counter()
         for job in self._jobs:
-            if job.status == "pending" and job.spec is not None \
-                    and job.spec.stream is not None:
+            if job.status != "pending" or job.spec is None:
+                continue
+            if job.spec.stream is not None:
                 self._run_streaming(job, cfg, stats)
+            elif job.spec.shards > 1:
+                self._run_sharded(job, cfg, stats)
         mq = make_multiqueue(lane_capacity, self.num_lanes,
                              device=self.device)
         pending = deque(j for j in self._jobs if j.status == "pending")
@@ -584,8 +672,10 @@ def serve_sequential(
     lane_capacity: Optional[int] = None,
     max_rounds: int = 1 << 17,
     device="cuda",
+    shard_devices=None,
 ) -> ServerResult:
-    """Baseline: each job runs alone (single lane, full wavefront).
+    """Baseline: each job runs alone (single lane, full wavefront; a
+    sharded job on its mesh, ``shard_devices`` as :class:`TaskServer`'s).
 
     Total rounds are the sum over jobs -- what a tenant-at-a-time
     deployment pays.  Job ids match submission order, so results compare
@@ -598,7 +688,8 @@ def serve_sequential(
     for i, spec in enumerate(specs):
         server = TaskServer(registry, num_lanes=1, config=config,
                             policy="weighted", lane_capacity=lane_capacity,
-                            max_rounds=max_rounds, device=device)
+                            max_rounds=max_rounds, device=device,
+                            shard_devices=shard_devices)
         server.submit(spec)
         out = server.run()
         results[i] = out.results[0]

@@ -42,18 +42,20 @@ ALGORITHMS = ("bfs", "pagerank", "coloring")
 class JobSpec:
     """A tenant's request.  ``weight`` feeds the weighted fairness policy.
 
-    ``shards > 1`` asks for a sharded single-tenant drain, which comes with
-    ROADMAP A12b: ``TaskServer.submit`` refuses it.  ``stream`` takes a
-    :class:`~repro_torch.stream.StreamSpec`: the job is a streaming job
-    (a delta log committed batch by batch with incremental recompute),
-    served as a dedicated phase before the fused rounds.
+    ``shards > 1`` asks for a sharded single-tenant drain: the job owns a
+    ``shards``-shard mesh for the duration of its drain (``repro_torch/
+    shard``) and the server runs it as a phase of its own before the fused
+    rounds.  ``stream`` takes a :class:`~repro_torch.stream.StreamSpec`:
+    the job is a streaming job (a delta log committed batch by batch with
+    incremental recompute), also served as a phase of its own; with
+    ``shards > 1`` each batch drain is a sharded one.
     """
 
     algorithm: str                 # one of ALGORITHMS
     graph: str                     # name registered with the JobRegistry
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     weight: float = 1.0
-    shards: int = 1                # >1 = sharded single-tenant job (A12b)
+    shards: int = 1                # >1 = sharded single-tenant job
     stream: Optional[Any] = None
 
     def __post_init__(self):

@@ -33,8 +33,10 @@ another shard has not merged yet:
 the global flag, none of them synchronizing with the host (CUDA's
 sync-debug mode raises inside a window), a round after the flag fell
 changing nothing.  :func:`discrete_run_sharded` reads the flag every round
-and can record the reference's per-round ``trace`` dicts.  A
-``max_rounds`` exit flushes staged arrivals back into the queues.
+and can record the reference's per-round ``trace`` dicts.  Under both, a
+traced drain carries one ring a shard on its device and writes a row a
+shard a round inside the round.  A ``max_rounds`` exit flushes staged
+arrivals back into the queues.
 
 The reference sizes its staging buffer before the loop by tracing the
 body abstractly (``_body_out_width``); here the first round, which runs
@@ -226,12 +228,13 @@ def _make_round(program: AtosProgram, cfg: SchedulerConfig, n: int,
                 mesh_dims: Optional[Tuple[int, int]] = None):
     """The round: deliver -> steal -> pop -> body -> exchange -> merge.
 
-    ``round_step(fs, mqs, states, cs, pending)`` returns ``(mqs, states,
-    cs, pending')``, each a list over shards (``cs`` the packed
-    counters); ``pending`` is the staged
-    arrivals in deferred mode (None before the first round and in strict
-    mode).  ``keep_going(mqs, states, cs, pending)`` is the global
-    continuation flag, one copy a shard.
+    ``round_step(fs, mqs, states, cs, pending, rings)`` returns ``(mqs,
+    states, cs, pending', rings')``, each a list over shards (``cs`` the
+    packed counters); ``pending`` is the staged arrivals in deferred mode
+    (None before the first round and in strict mode); ``rings``, the
+    shards' trace rings or None, get one row a shard.  ``keep_going(mqs,
+    states, cs, pending)`` is the global continuation flag, one copy a
+    shard.
     """
     s = cfg.num_shards
     w = cfg.wavefront
@@ -245,7 +248,7 @@ def _make_round(program: AtosProgram, cfg: SchedulerConfig, n: int,
     lanes = [torch.arange(w, dtype=_I32, device=dev) for dev in devices]
     ones = [torch.ones((), dtype=_I32, device=dev) for dev in devices]
 
-    def round_step(fs, mqs, states, cs, pending=None):
+    def round_step(fs, mqs, states, cs, pending=None, rings=None):
         mqs = list(mqs)
         deferred_n = [torch.zeros((), dtype=_I32, device=dev)
                       for dev in devices]
@@ -256,6 +259,13 @@ def _make_round(program: AtosProgram, cfg: SchedulerConfig, n: int,
                 deferred_n[d] = pv.sum(dtype=_I32)
                 mqs[d] = mqs[d].push(LANE_LOCAL, pending[d], pv,
                                      backend=cfg.backend)
+        if rings is not None:
+            # pre-steal, pre-pop occupancy and the counters' baselines
+            size_before = [mq.size for mq in mqs]
+            work0 = [program.work(st) if program.work is not None else 0
+                     for st in states]
+            splits0 = [program.splits(st) if program.splits is not None
+                       else 0 for st in states]
         donated = triggered = [torch.zeros((), dtype=_I32, device=dev)
                                for dev in devices]
         if steal_on:
@@ -291,6 +301,26 @@ def _make_round(program: AtosProgram, cfg: SchedulerConfig, n: int,
                 mqs[d] = mqs[d].push(LANE_LOCAL, delivered[d],
                                      delivered[d] != EMPTY,
                                      backend=cfg.backend)
+        if rings is not None:
+            # one row a shard a round, by device ops: work and splits are
+            # the shard's own pre-merge deltas, so a round's rows summed
+            # over shards give the global round
+            rings = list(rings)
+            for d in range(s):
+                m = meters[d]
+                work1 = (program.work(news[d]) if program.work is not None
+                         else 0)
+                splits1 = (program.splits(news[d])
+                           if program.splits is not None else 0)
+                rings[d] = rings[d].record(
+                    round=cs[d][0], lane=d, queue_size=size_before[d],
+                    pops=n_valid[d],
+                    pushes=mqs[d].size - size_before[d] + n_valid[d],
+                    work=work1 - work0[d], splits=splits1 - splits0[d],
+                    donated=donated[d], exchanged=m["sent"],
+                    exchanged_row=m["sent_row"],
+                    exchanged_col=m["sent_col"], wire=m["wire"],
+                    deferred=deferred_n[d])
         # round-synchronous reconciliation: every shard then holds the
         # same merged state, so the next round's pops read fresh values
         states = merge(states, news, devices)
@@ -305,7 +335,8 @@ def _make_round(program: AtosProgram, cfg: SchedulerConfig, n: int,
                 m["sent_col"], m["payload"], m["padding"], m["wire"],
                 deferred_n[d],
                 ((deferred_n[d] > 0) & (n_valid[d] > 0)).to(_I32)]))
-        return mqs, states, cs_next, (delivered if defer else None)
+        return (mqs, states, cs_next, (delivered if defer else None),
+                rings)
 
     def keep_going(mqs, states, cs, pending=None):
         """The global continuation, one copy a shard: rounds in bounds, and
@@ -348,52 +379,59 @@ def _bodies(program, parts: ShardedCSR, cfg, mesh):
 
 def persistent_run_sharded(program: AtosProgram, parts: ShardedCSR, mqs0,
                            states0, cfg: SchedulerConfig, mesh: ShardMesh,
-                           route_width=None, mesh_dims=None):
+                           route_width=None, mesh_dims=None, rings0=None):
     """The drain as predicated rounds, ``POLL_EVERY`` between host polls
-    of the global flag, with no host sync inside a window.  Returns the
-    per-shard ``(mqs, states, counters)``."""
+    of the global flag, with no host sync inside a window.  ``rings0``,
+    one :class:`~repro_torch.obs.TraceRing` a shard on its device, rides
+    the carry as its other parts do, so a round after the flag fell writes
+    no row.  Returns the per-shard ``(mqs, states, counters, rings)``."""
     round_step, keep_going = _make_round(program, cfg, parts.num_vertices,
                                          route_width, mesh, mesh_dims)
     fs = _bodies(program, parts, cfg, mesh)
     devices = mesh.devices
     mqs, states, pending = list(mqs0), list(states0), None
+    rings = None if rings0 is None else list(rings0)
     cs = _packed_zero(devices)
     more = keep_going(mqs, states, cs)
     while bool(more[0]):  # the one host sync per poll
         with no_host_sync(devices[0]):
             for _ in range(POLL_EVERY):
-                new = round_step(fs, mqs, states, cs, pending)
-                more_new = keep_going(*new)
+                new = round_step(fs, mqs, states, cs, pending, rings)
+                more_new = keep_going(*new[:4])
                 if pending is None and cfg.defer_rounds > 0:
                     # the first round: its flag was just read on the host,
                     # and it makes the staging buffer the later rounds keep
-                    mqs, states, cs, pending = new
+                    mqs, states, cs, pending, rings = new
                     more = more_new
                     continue
-                old = (mqs, states, cs, pending)
+                old = (mqs, states, cs, pending, rings)
                 picked = [_where_per_shard(more, list(a), list(b))
                           if a is not None else None
                           for a, b in zip(new, old)]
-                mqs, states, cs, pending = picked
+                mqs, states, cs, pending, rings = picked
                 more = [f & g for f, g in zip(more, more_new)]
-    return _flush_pending(mqs, pending, cfg.backend), states, _unpacked(cs)
+    return (_flush_pending(mqs, pending, cfg.backend), states, _unpacked(cs),
+            rings)
 
 
 def discrete_run_sharded(program: AtosProgram, parts: ShardedCSR, mqs0,
                          states0, cfg: SchedulerConfig, mesh: ShardMesh,
                          route_width=None, trace: Optional[list] = None,
-                         mesh_dims=None):
+                         mesh_dims=None, rings0=None):
     """Host loop, one round per iteration (discrete kernels).
 
     ``trace`` collects the reference's per-round host dicts: ``round``,
     the shards' queue ``sizes`` after it, and the round's ``exchanged``,
     ``donated``, ``wire``, ``exchanged_row`` and ``exchanged_col``.
+    ``rings0`` are the shards' trace rings, as in
+    :func:`persistent_run_sharded`.
     """
     round_step, keep_going = _make_round(program, cfg, parts.num_vertices,
                                          route_width, mesh, mesh_dims)
     fs = _bodies(program, parts, cfg, mesh)
     devices = mesh.devices
     mqs, states, pending = list(mqs0), list(states0), None
+    rings = None if rings0 is None else list(rings0)
     cs = _packed_zero(devices)
     rounds = 0
     keys = ("sent", "donated", "wire", "sent_row", "sent_col")
@@ -408,7 +446,8 @@ def discrete_run_sharded(program: AtosProgram, parts: ShardedCSR, mqs0,
                 break
         if program.stop is not None and bool(program.stop(states[0])):
             break
-        mqs, states, cs, pending = round_step(fs, mqs, states, cs, pending)
+        mqs, states, cs, pending, rings = round_step(fs, mqs, states, cs,
+                                                     pending, rings)
         more = keep_going(mqs, states, cs, pending)
         rounds += 1
         if trace is not None:
@@ -426,7 +465,8 @@ def discrete_run_sharded(program: AtosProgram, parts: ShardedCSR, mqs0,
             prev = totals
         if not bool(more[0]):
             break
-    return _flush_pending(mqs, pending, cfg.backend), states, _unpacked(cs)
+    return (_flush_pending(mqs, pending, cfg.backend), states, _unpacked(cs),
+            rings)
 
 
 # --------------------------------------------------------------- front door
@@ -448,7 +488,13 @@ def _mesh_for(cfg: SchedulerConfig, mesh: Optional[ShardMesh],
 def run_sharded(program: AtosProgram, graph: CSRGraph, cfg: SchedulerConfig,
                 *, queue_capacity: Optional[int] = None,
                 route_width: Optional[int] = None,
-                mesh: Optional[ShardMesh] = None, trace=None
+                mesh: Optional[ShardMesh] = None, trace=None,
+                trace_engine: Optional[str] = None,
+                trace_round_offset: int = 0,
+                initial_queues: Optional[List[MultiQueue]] = None,
+                initial_state: Any = None,
+                final_queues: Optional[list] = None,
+                parts: Optional[ShardedCSR] = None
                 ) -> Tuple[Any, ShardRunStats]:
     """Drain ``program`` over a ``cfg.num_shards``-shard mesh.
 
@@ -459,30 +505,57 @@ def run_sharded(program: AtosProgram, graph: CSRGraph, cfg: SchedulerConfig,
     ``launch.mesh.make_shard_mesh(S, devices=...)`` to stack shards on one
     device.  ``cfg.mesh_shape`` picks the two-hop exchange,
     ``cfg.defer_rounds`` the deferred delivery, ``cfg.compress`` the codec.
-    ``trace`` takes the discrete driver's legacy ``list``.
+
+    ``trace`` takes an :class:`~repro_torch.obs.Trace` (each shard writes
+    one row a round into a ring on its own device, with no host sync; the
+    rings are drained at run end under ``trace_engine``, default
+    ``sharded.persistent`` or ``sharded.discrete``, at rounds shifted by
+    ``trace_round_offset``, and the ``shard_run`` doc is added) or the
+    discrete driver's legacy ``list``.
+
+    ``initial_state`` / ``initial_queues`` resume a drain from an explicit
+    carry instead of ``program.init()`` (the stream driver's reseeds and
+    snapshot restores; ``initial_queues`` is a list of per-shard
+    :class:`MultiQueue` from :func:`seed_queues`, the state goes to every
+    shard's device).  ``final_queues``, if a list, receives the list of
+    per-shard end-of-drain queues.  ``parts``, a live
+    :class:`~repro_torch.shard.partition.ShardedCSR` on the mesh's devices
+    (``stream/ingest.reshard``), skips ``partition_graph``.
     """
+    from ..obs import Trace  # lazy: obs is a leaf layer
+
     s = cfg.num_shards
     mesh_dims = _mesh_dims(cfg)
     mesh = _mesh_for(cfg, mesh, mesh_dims)
     devices = mesh.devices
     n = graph.num_vertices
-    parts = partition_graph(graph, s, halo=cfg.steal_threshold > 0,
-                            devices=devices)
-    state0, seeds = program.init()
-    mqs0 = seed_queues(program, seeds, n, queue_capacity or max(4 * n, 1024),
-                       devices)
-    states0 = [tree_map(lambda x, dev=dev: x.to(dev), state0)
+    if parts is None:
+        parts = partition_graph(graph, s, halo=cfg.steal_threshold > 0,
+                                devices=devices)
+    capacity = queue_capacity or max(4 * n, 1024)
+    if initial_state is None or initial_queues is None:
+        init_state, seeds = program.init()
+        if initial_state is None:
+            initial_state = init_state
+        if initial_queues is None:
+            initial_queues = seed_queues(program, seeds, n, capacity,
+                                         devices)
+    mqs0 = list(initial_queues)
+    states0 = [tree_map(lambda x, dev=dev: x.to(dev), initial_state)
                for dev in devices]
+    obs = trace if isinstance(trace, Trace) else None
+    rings0 = ([obs.ring(dev) for dev in devices] if obs is not None
+              else None)
     if cfg.persistent:
-        mqs, states, cs = persistent_run_sharded(
+        mqs, states, cs, rings = persistent_run_sharded(
             program, parts, mqs0, states0, cfg, mesh,
-            route_width=route_width, mesh_dims=mesh_dims)
+            route_width=route_width, mesh_dims=mesh_dims, rings0=rings0)
     else:
-        mqs, states, cs = discrete_run_sharded(
+        mqs, states, cs, rings = discrete_run_sharded(
             program, parts, mqs0, states0, cfg, mesh,
             route_width=route_width,
             trace=trace if isinstance(trace, list) else None,
-            mesh_dims=mesh_dims)
+            mesh_dims=mesh_dims, rings0=rings0)
 
     c = {k: np.array([int(getattr(cd, k)) for cd in cs], dtype=np.int32)
          for k in ShardCounters._fields}
@@ -508,4 +581,12 @@ def run_sharded(program: AtosProgram, graph: CSRGraph, cfg: SchedulerConfig,
         deferred_delivered=int(c["deferred"].sum()),
         overlap_rounds=int(c["overlap_rounds"].max()),
     )
+    if obs is not None:
+        engine = trace_engine or (
+            "sharded.persistent" if cfg.persistent else "sharded.discrete")
+        for ring in rings:
+            obs.drain(ring, engine=engine, round_offset=trace_round_offset)
+        obs.add_metric(stats.as_dict())
+    if final_queues is not None:
+        final_queues.append(mqs)
     return states[0], stats

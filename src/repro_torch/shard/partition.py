@@ -83,6 +83,49 @@ class ShardedCSR:
                         col_idx=self.col_idx[shard])
 
 
+def build_slice(d: int, n: int, num_shards: int, halo: bool, rp_dev,
+                rp_at, cols_of) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Shard ``d``'s ``(row_ptr, col_idx, owned edges)``, cut on
+    ``rp_dev``'s device: the slice format :func:`partition_graph` builds
+    and ``stream/ingest.reshard`` patches per owner.
+
+    ``rp_dev`` is the graph's ``[n + 1]`` row_ptr on its device,
+    ``rp_at[v]`` the same offset on the host (read at block bounds only),
+    ``cols_of(lo, hi)`` the concatenated neighbor lists of rows
+    ``[lo, hi)`` (a ``col_idx`` slice of a CSR, ``SlottedCSR.range_cols``
+    of a slotted graph); ``halo`` is whether the halo is in use.
+    """
+    own_lo, own_hi = block_bounds(d, n, num_shards)
+    e_lo, e_hi = int(rp_at[own_lo]), int(rp_at[own_hi])
+
+    def cut(lo_v: int, hi_v: int, base: int):
+        """row_ptr entries of rows [lo_v, hi_v], shifted to start at
+        ``base``."""
+        return (rp_dev[lo_v:hi_v + 1].to(torch.int64)
+                - int(rp_at[lo_v]) + base).to(_I32)
+
+    lrp = torch.zeros(n + 1, dtype=_I32, device=rp_dev.device)
+    if halo and d > 0:
+        # the predecessor block immediately precedes the own block in
+        # vertex (and so edge) space: one contiguous slice
+        pre_lo, _ = block_bounds(d - 1, n, num_shards)
+        lcol = cols_of(pre_lo, own_hi)
+        lrp[pre_lo:own_hi + 1] = cut(pre_lo, own_hi, 0)
+    elif halo:
+        # shard 0's predecessor is the last block: [own | halo] edges
+        pre_lo, pre_hi = block_bounds(num_shards - 1, n, num_shards)
+        lcol = torch.cat([cols_of(own_lo, own_hi), cols_of(pre_lo, pre_hi)])
+        lrp[own_lo:own_hi + 1] = cut(own_lo, own_hi, 0)
+        lrp[pre_lo:pre_hi + 1] = cut(pre_lo, pre_hi, e_hi - e_lo)
+    else:
+        lcol = cols_of(own_lo, own_hi)
+        lrp[own_lo:own_hi + 1] = cut(own_lo, own_hi, 0)
+    if lcol.shape[0] == 0:
+        # an edgeless shard keeps one unread entry: gathers clamp
+        lcol = torch.zeros(1, dtype=_I32, device=rp_dev.device)
+    return lrp, lcol, e_hi - e_lo
+
+
 def partition_graph(graph: CSRGraph, num_shards: int, halo: bool = True,
                     devices: Optional[Sequence] = None) -> ShardedCSR:
     """Reshard ``graph`` by vertex block onto ``devices`` (default: every
@@ -97,42 +140,18 @@ def partition_graph(graph: CSRGraph, num_shards: int, halo: bool = True,
     devices = ([graph.device] * num_shards if devices is None
                else [torch.device(d) for d in devices])
     n = graph.num_vertices
-    rp_dev = graph.row_ptr
-    rp = rp_dev.cpu().numpy().astype(np.int64)
+    rp = graph.row_ptr.cpu().numpy().astype(np.int64)
     col = graph.col_idx
     use_halo = halo and num_shards > 1
 
-    def cut(lo_v: int, hi_v: int, base: int):
-        """row_ptr entries of rows [lo_v, hi_v], shifted to start at
-        ``base``."""
-        return (rp_dev[lo_v:hi_v + 1].to(torch.int64)
-                - int(rp[lo_v]) + base).to(_I32)
+    def cols_of(lo_v: int, hi_v: int):
+        return col[int(rp[lo_v]):int(rp[hi_v])]
 
     row_ptrs, cols, owned = [], [], []
     for d in range(num_shards):
-        own_lo, own_hi = block_bounds(d, n, num_shards)
-        e_lo, e_hi = int(rp[own_lo]), int(rp[own_hi])
-        owned.append(e_hi - e_lo)
-        lrp = torch.zeros(n + 1, dtype=_I32, device=graph.device)
-        if use_halo and d > 0:
-            # the predecessor block immediately precedes the own block in
-            # vertex (and so edge) space: one contiguous slice
-            pre_lo, _ = block_bounds(d - 1, n, num_shards)
-            lcol = col[int(rp[pre_lo]):e_hi]
-            lrp[pre_lo:own_hi + 1] = cut(pre_lo, own_hi, 0)
-        elif use_halo:
-            # shard 0's predecessor is the last block: [own | halo] edges
-            pre_lo, pre_hi = block_bounds(num_shards - 1, n, num_shards)
-            lcol = torch.cat([col[e_lo:e_hi],
-                              col[int(rp[pre_lo]):int(rp[pre_hi])]])
-            lrp[own_lo:own_hi + 1] = cut(own_lo, own_hi, 0)
-            lrp[pre_lo:pre_hi + 1] = cut(pre_lo, pre_hi, e_hi - e_lo)
-        else:
-            lcol = col[e_lo:e_hi]
-            lrp[own_lo:own_hi + 1] = cut(own_lo, own_hi, 0)
-        if lcol.shape[0] == 0:
-            # an edgeless shard keeps one unread entry: gathers clamp
-            lcol = torch.zeros(1, dtype=_I32, device=graph.device)
+        lrp, lcol, e = build_slice(d, n, num_shards, use_halo,
+                                   graph.row_ptr, rp, cols_of)
+        owned.append(e)
         row_ptrs.append(lrp.to(devices[d]))
         cols.append(lcol.contiguous().to(devices[d]))
     return ShardedCSR(row_ptr=tuple(row_ptrs), col_idx=tuple(cols),

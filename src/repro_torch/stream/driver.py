@@ -17,8 +17,12 @@ Snapshots cut a drain at round boundaries.  Rounds and processed items live
 in the carry, so a segmented drain takes exactly the steps of an uncut one,
 and a resumed run -- replay the delta log, rebuild the program, restore
 the carry, keep the segment schedule -- is bit-identical to the
-uninterrupted one.  The sharded stream comes with ROADMAP A12b and raises
-before any commit.
+uninterrupted one.
+
+Under the sharded topology each batch drain is a sequence of
+``shard.run_sharded`` segments over one long-lived partition, patched per
+owner after each commit (``stream/ingest.reshard``); a sharded snapshot's
+queue is the tuple of the shards' queues, each restored on its shard.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import dataclasses
 import time
 from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.queue import make_multiqueue, make_queue
@@ -40,7 +45,7 @@ from ..runtime.policy import policy_of
 from ..runtime.programs import build_program
 from .deltas import EdgeDelta
 from .incremental import reseed
-from .ingest import commit, replay_commits
+from .ingest import commit, replay_commits, reshard
 from .snapshot import SnapshotManager, graph_fingerprint
 
 
@@ -150,6 +155,58 @@ def _drive_shared(setup, kernel: str, every: int, cb, device):
     return carry
 
 
+def _drive_sharded(program, graph, cfg: SchedulerConfig, capacity: int,
+                   mqs, state, rounds: int, processed: int, every: int, cb,
+                   route_width, mesh, trace=None, trace_engine=None,
+                   trace_round_offset: int = 0, parts=None):
+    """Segmented sharded drain: each segment is one ``run_sharded`` call
+    with its round budget clamped to the next snapshot boundary.  The
+    host-side continuation between segments is the in-loop one (the queue
+    mass for ``empty_means_done`` programs, then ``stop``), and a segment
+    that made no progress ends the drain.  Returns ``(queues, state,
+    rounds, processed, dropped, extra)``."""
+    from ..shard import run_sharded
+    from ..shard.driver import _queue_sizes
+
+    extra = {"exchanged": 0, "donated": 0, "steal_rounds": 0,
+             "mis_routed": 0, "route_dropped": 0}
+
+    def more() -> bool:
+        if rounds >= cfg.max_rounds:
+            return False
+        if program.empty_means_done and int(_queue_sizes(mqs).sum()) == 0:
+            return False
+        if program.stop is not None and bool(program.stop(state)):
+            return False
+        return True
+
+    while more():
+        budget = cfg.max_rounds - rounds
+        if every > 0:
+            at_boundary = rounds % every
+            budget = min(budget, every - at_boundary if at_boundary else every)
+        final: list = []
+        state, st = run_sharded(
+            program, graph, dataclasses.replace(cfg, max_rounds=budget),
+            queue_capacity=capacity, route_width=route_width, mesh=mesh,
+            trace=trace, trace_engine=trace_engine,
+            trace_round_offset=trace_round_offset + rounds,
+            initial_queues=mqs, initial_state=state, final_queues=final,
+            parts=parts)
+        mqs = final[0]
+        rounds += st.rounds
+        processed += st.items_processed
+        for k in extra:
+            extra[k] += getattr(st, k)
+        if every > 0:
+            cb(mqs, state, rounds, processed)
+        if st.rounds == 0:  # never spin on a segment that made no progress
+            break
+    dropped = sum(int(mq.lanes.dropped.sum()) for mq in mqs) \
+        + extra["route_dropped"]
+    return mqs, state, rounds, processed, dropped, extra
+
+
 def run_stream(
     algorithm: str,
     graph,
@@ -163,6 +220,8 @@ def run_stream(
     checkpoint_dir: Optional[str] = None,
     keep: int = 3,
     resume: bool = False,
+    route_width: Optional[int] = None,
+    mesh=None,
     snapshot_hook=None,
     trace: Optional[Trace] = None,
     compact_every: int = 0,
@@ -181,13 +240,16 @@ def run_stream(
     it), drains each under the engine ``trace_engine`` (default
     ``stream.<algorithm>``; the task server names its job) at absolute,
     cross-batch round numbers, and registers the ``stream`` summary doc at
-    the end.
+    the end.  Under the sharded topology the drains run on ``mesh``
+    (``shard.run_sharded``'s default when None) and the stream's ``info``
+    adds the exchange totals (``exchanged``, ``donated``, ``steal_rounds``,
+    ``mis_routed``, ``route_dropped``).
     """
     policy = policy_of(cfg)
-    if policy.topology == "sharded":
-        raise NotImplementedError(
-            f"stream_execute under {policy} is not ported yet: the sharded "
-            f"stream comes with ROADMAP A12b")
+    sharded = policy.topology == "sharded"
+    if sharded:
+        from ..shard.driver import _mesh_dims, _mesh_for, seed_queues
+        mesh = _mesh_for(cfg, mesh, _mesh_dims(cfg))
     deltas = list(deltas)
     params = dict(params or {})
     total = len(deltas) + 1
@@ -215,6 +277,7 @@ def run_stream(
         replay_commits(slotted, deltas[:start_batch], compact_every,
                        overlay_slack)
     cur_graph = slotted.view()
+    parts = None  # sharded: the long-lived partition, patched per owner
     state = None
     records: List[BatchRecord] = []
     totals = {"rounds": 0, "processed": 0, "work": 0, "dropped": 0}
@@ -236,20 +299,45 @@ def run_stream(
                                 queue_capacity=queue_capacity)
         was_incremental = bool(b > 0 and incremental
                                and program.dirty_seeds is not None)
-        capacity = shared_queue_capacity(program, queue_capacity)
+        n = cur_graph.num_vertices
+        if sharded:
+            # the owner-aware patch: only shards owning an effectively
+            # changed row (and their halo successors) are rebuilt; batch 0,
+            # or a fresh resume, pays the one full build
+            t_commit = time.perf_counter()
+            halo = cfg.steal_threshold > 0
+            if parts is None:
+                parts = reshard(slotted, cfg.num_shards, halo=halo,
+                                devices=mesh.devices)
+            elif applied is not None:
+                parts = reshard(
+                    slotted, cfg.num_shards, halo=halo, parts=parts,
+                    touched_rows=np.concatenate([applied.ins_src,
+                                                 applied.del_src]))
+            commit_s += time.perf_counter() - t_commit
+            capacity = queue_capacity or max(4 * n, 1024)
+        else:
+            capacity = shared_queue_capacity(program, queue_capacity)
         fingerprint = None
 
         restored = None
         if restoring:
             state_template, _ = program.init()
-            q_template = (make_queue(capacity, device=device)
-                          if policy.topology == "single"
-                          else make_multiqueue(capacity, 1, device=device))
+            if sharded:
+                q_template = tuple(seed_queues(
+                    program, torch.zeros((0,), dtype=torch.int32), n,
+                    capacity, mesh.devices))
+            elif policy.topology == "single":
+                q_template = make_queue(capacity, device=device)
+            else:
+                q_template = make_multiqueue(capacity, 1, device=device)
             tree = snap.restore(resume_tick, queue_template=q_template,
                                 state_template=state_template,
                                 graph=cur_graph, num_deltas=b)
             cur = {k: int(v) for k, v in tree["cursor"].items()}
-            restored = (tree["queue"], cur["rounds"], cur["processed"])
+            queue = tree["queue"]
+            restored = (list(queue) if sharded else queue, cur["rounds"],
+                        cur["processed"])
             state = tree["state"]
             seeds = torch.zeros((0,), dtype=torch.int32, device=device)
             seeds_count, eff = cur["seeds"], cur["eff"]
@@ -273,6 +361,8 @@ def run_stream(
             nonlocal tick, fingerprint
             if fingerprint is None:  # the graph is fixed within a batch
                 fingerprint = graph_fingerprint(cur_graph, b)
+            if isinstance(queue_tree, list):  # the shards' queues
+                queue_tree = tuple(queue_tree)
             snap.save(tick, cursor={
                 "batch": b, "rounds": r, "processed": p,
                 "pre_work": pre_work, "pre_splits": pre_splits,
@@ -289,24 +379,41 @@ def run_stream(
         batch_offset = totals["rounds"]
         r0 = restored[1] if restored is not None else 0
         t_drain = time.perf_counter()
-        setup = drain_setup(
-            program, cur_graph, cfg, queue_capacity=queue_capacity,
-            trace=trace, init=(state, seeds),
-            queue=restored[0] if restored is not None else None,
-            rounds=r0, processed=restored[2] if restored is not None else 0)
-        if snap is not None and restored is None:
-            save_snapshot(setup.carry[0], setup.carry[1], 0, 0)
-        carry = _drive_shared(
-            setup, policy.kernel, every,
-            lambda c: save_snapshot(c[0], c[1], int(c[2]), int(c[3])),
-            device)
-        queue, state, rounds_a, processed_a = carry[:4]
-        rounds, processed = int(rounds_a), int(processed_a)
-        drain_s = time.perf_counter() - t_drain
-        if trace is not None:
-            trace.drain(carry[4], engine=engine,
-                        round_offset=batch_offset - r0)
-        dropped = int(setup.dropped(queue))
+        extra = {}
+        if sharded:
+            if restored is None:
+                mqs = seed_queues(program, seeds, n, capacity, mesh.devices)
+                p0 = 0
+            else:
+                mqs, _, p0 = restored
+            if snap is not None and restored is None:
+                save_snapshot(mqs, state, 0, 0)
+            _, state, rounds, processed, dropped, extra = _drive_sharded(
+                program, cur_graph, cfg, capacity, mqs, state, r0, p0, every,
+                save_snapshot, route_width, mesh, trace=trace,
+                trace_engine=engine, trace_round_offset=batch_offset - r0,
+                parts=parts)
+            drain_s = time.perf_counter() - t_drain
+        else:
+            setup = drain_setup(
+                program, cur_graph, cfg, queue_capacity=queue_capacity,
+                trace=trace, init=(state, seeds),
+                queue=restored[0] if restored is not None else None,
+                rounds=r0,
+                processed=restored[2] if restored is not None else 0)
+            if snap is not None and restored is None:
+                save_snapshot(setup.carry[0], setup.carry[1], 0, 0)
+            carry = _drive_shared(
+                setup, policy.kernel, every,
+                lambda c: save_snapshot(c[0], c[1], int(c[2]), int(c[3])),
+                device)
+            queue, state, rounds_a, processed_a = carry[:4]
+            rounds, processed = int(rounds_a), int(processed_a)
+            drain_s = time.perf_counter() - t_drain
+            if trace is not None:
+                trace.drain(carry[4], engine=engine,
+                            round_offset=batch_offset - r0)
+            dropped = int(setup.dropped(queue))
 
         records.append(BatchRecord(
             batch=b, incremental=was_incremental, seeds=seeds_count,
@@ -330,6 +437,8 @@ def run_stream(
         totals["processed"] += processed
         totals["work"] += records[-1].work
         totals["dropped"] += dropped
+        for k, v in extra.items():
+            totals[k] = totals.get(k, 0) + v
 
     if snap is not None:
         snap.wait()

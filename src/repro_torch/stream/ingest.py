@@ -13,7 +13,7 @@ the canonical edge set (sorted unique directed pairs, self-loops dropped):
   in-place slab inserts and deletes plus the overlay, O(touched rows).
 
 Inserting a present edge or deleting an absent one is a no-op on both.
-The sharded per-owner patch (``reshard``) comes with the sharded slice.
+:func:`reshard` patches a sharded partition per owner after a commit.
 """
 from __future__ import annotations
 
@@ -154,8 +154,58 @@ def replay_commits(slotted: SlottedCSR, deltas, compact_every: int = 0,
 
 
 def reshard(graph, num_shards: int, halo: bool = True, *,
-            parts=None, touched_rows=None):
-    """The sharded (re)build of a committed graph: not ported yet."""
-    raise NotImplementedError(
-        "the sharded per-owner patch comes with the sharded stream, "
-        "ROADMAP A12b")
+            parts=None, touched_rows=None, devices=None):
+    """Owner-aware sharded (re)build of a committed graph.
+
+    Without ``parts`` this is the full ``partition_graph`` build of the
+    canonical CSR (``to_csr()`` of a :class:`SlottedCSR`), its slices on
+    ``devices`` (default: the graph's device).  Ownership blocks are a
+    function of ``(n, num_shards)`` only, so re-partitioning the post-delta
+    graph keeps every row's owner and steal halo.
+
+    With ``parts`` (the previous :class:`~repro_torch.shard.partition.
+    ShardedCSR`), ``touched_rows`` (the rows the commit rewrote) and a
+    :class:`SlottedCSR` source, only the **dirty** shards -- owners of
+    touched rows, plus their ring successors when ``parts`` carries halos
+    (the successor replicates the owner's block) -- are re-extracted
+    (``SlottedCSR.range_cols``) and rebuilt on their own devices; clean
+    shards keep the very same tensors.  The port's slices are unpadded, so
+    a dirty shard that grew needs no restack: the reference's overflow
+    fallback to a full build with grown padding has no counterpart here.
+    """
+    from ..shard.partition import (block_bounds, build_slice, owner_of,
+                                   partition_graph)  # lazy: shard -> runtime
+
+    if parts is None or touched_rows is None or \
+            not isinstance(graph, SlottedCSR):
+        source = graph.to_csr() if isinstance(graph, SlottedCSR) else graph
+        return partition_graph(source, num_shards, halo=halo,
+                               devices=devices)
+
+    touched = np.unique(np.asarray(touched_rows, dtype=np.int64))
+    if touched.size == 0:
+        return parts
+    n = graph.num_vertices
+    owners = np.unique(owner_of(torch.from_numpy(touched), n,
+                                num_shards).numpy()).tolist()
+    dirty = set(owners)
+    if parts.halo:
+        dirty |= {(d + 1) % num_shards for d in owners}
+
+    rp_dev = graph.row_ptr64()
+    # the edge offsets at every block boundary: one small host read
+    at = sorted({v for d in range(num_shards)
+                 for v in block_bounds(d, n, num_shards)})
+    rp_at = dict(zip(at, rp_dev[torch.as_tensor(
+        at, dtype=torch.int64, device=rp_dev.device)].tolist()))
+
+    row_ptr, col_idx = list(parts.row_ptr), list(parts.col_idx)
+    owned = list(parts.edges_per_shard)
+    for d in sorted(dirty):
+        lrp, lcol, owned[d] = build_slice(d, n, num_shards, parts.halo,
+                                          rp_dev, rp_at, graph.range_cols)
+        row_ptr[d] = lrp.to(parts.row_ptr[d].device)
+        col_idx[d] = lcol.contiguous().to(parts.col_idx[d].device)
+    return dataclasses.replace(parts, row_ptr=tuple(row_ptr),
+                               col_idx=tuple(col_idx),
+                               edges_per_shard=tuple(owned))

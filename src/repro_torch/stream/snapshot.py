@@ -11,7 +11,9 @@ written through the checkpoint layer's atomic tmp-then-rename commit
                    graph the drain ran on; a resume re-derives that graph by
                    replaying the delta log, and the check catches a caller
                    handing back another base graph or log
-    queue       -- the live queue (TaskQueue or MultiQueue)
+    queue       -- the live queue (TaskQueue or MultiQueue; a sharded
+                   stream's is the tuple of its shards' MultiQueues, each
+                   restored onto its shard's device)
     state       -- the program state
 
 The driver snapshots only between rounds, so the carry on disk is the

@@ -214,36 +214,11 @@ def test_cpu_megakernel_is_the_plain_fused_drain_in_one_launch():
         execute(build_program("bfs", g, cuda_cfg), g, cuda_cfg)
 
 
-def test_unported_algorithms_and_trace_raise():
-    from repro_torch.obs import Trace
-
+def test_unknown_bfs_params_raise():
     g = tg.grid2d(3, 3, device="cpu")
     cfg = SchedulerConfig(num_workers=2)
-    sharded = config_for(cfg, parse_policy("sharded.persistent"))
-    with pytest.raises(NotImplementedError, match="A12b"):
-        execute(build_program("bfs", g, cfg), g, sharded, trace=Trace())
     with pytest.raises(ValueError, match="unknown bfs params"):
         build_program("bfs", g, cfg, params={"sorce": 0})
-
-
-@pytest.mark.parametrize("entry", ["stream_execute", "reshard"])
-def test_sharded_streams_raise_naming_a12(entry):
-    """The streaming slice runs every single and fused cell; the sharded
-    stream raises naming ROADMAP A12b before any commit."""
-    from repro_torch.graph import edge_delta_stream
-    from repro_torch.graph.slotted import SlottedCSR
-    from repro_torch.runtime import stream_execute
-    from repro_torch.stream import reshard
-
-    g = tg.grid2d(4, 4, device="cpu")
-    deltas = edge_delta_stream(g, 2, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        if entry == "stream_execute":
-            stream_execute("bfs", g, deltas, config_for(
-                SchedulerConfig(num_workers=2),
-                parse_policy("sharded.persistent")))
-        else:
-            reshard(SlottedCSR.from_csr(g), 2)
 
 
 def test_no_port_file_waits_for_the_streaming_slice():

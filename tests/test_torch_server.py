@@ -288,12 +288,6 @@ def test_registry_builds_each_job_from_its_params(registries, spec):
     assert tp.ideal_work == jp.ideal_work
 
 
-def test_sharded_jobs_raise_naming_a12():
-    server = TaskServer(JobRegistry(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12b"):
-        server.submit(JobSpec("bfs", "grid", {"source": 0}, shards=2))
-
-
 def test_graph_on_another_device_than_the_server_raises(registries,
                                                         monkeypatch):
     """The server refuses a registered graph that lives elsewhere (here a
@@ -563,13 +557,3 @@ def test_cli_runs_on_the_host_and_prints_the_reference_format(capsys):
     assert mine == theirs
     assert mine.splitlines()[:10] == lines[1:11]  # the table, wall aside
 
-
-@pytest.mark.parametrize("flags", [["--shards", "2"], ["--mesh", "2", "2"],
-                                   ["--overlap"], ["--compress"]])
-def test_cli_sharding_flags_exit_naming_a12(flags, capsys):
-    from repro_torch.launch import taskserver
-
-    with pytest.raises(SystemExit) as exc:
-        taskserver.main(["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert "A12b" in capsys.readouterr().err

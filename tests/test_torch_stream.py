@@ -17,7 +17,8 @@ Inputs are made with numpy from a seed and handed to both packages:
     stream does not run on its installed version); trace rows against
     JAX's;
   * incremental streams against cold drains within the port, snapshots
-    resumed in-process, and the sharded stream raising A12b.
+    resumed in-process (the sharded stream is held in
+    ``test_torch_shard_stream.py``).
 
 All bitwise, except PageRank against a cold drain (within 10 eps, the
 reference's contract).
@@ -407,8 +408,3 @@ def test_snapshot_resume_in_process_is_bit_identical(stream_inputs,
              if k not in HOST_SECONDS} for r in resumed.batches] == \
         strip[batch:]
 
-
-def test_sharded_stream_raises_before_any_commit(stream_inputs):
-    _, tbase, _, td = stream_inputs
-    with pytest.raises(NotImplementedError, match="A12b"):
-        stream_execute("bfs", tbase, td, _cfg("sharded.persistent"))
