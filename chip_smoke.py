@@ -41,19 +41,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      where the plain stream's [W, budget] slices stay under 1 GB the kernel
      drain equals the plain fused drain (``backend="torch"``);
   4c. PageRank (damping 0.85, eps 1e-6, check_size 64) on the same graph
-     under ``single.persistent`` through B1, B2 and the ordered
-     scatter-add, then ``single.megakernel`` as one launch of B3-pr and no
-     other: converged (max residue <= eps, no drop), the push invariant
-     within its float32 bound, within 1e-3 of a float64 power iteration;
-     rank, residue, presence bits, counters, RunStats and the final queue
-     bitwise equal between the two cells; 64-round segments equal the
-     whole; at rmat(14) the kernel drain equals the plain drain run on the
-     CPU bit for bit; one persistent drain (timed once: it gives the
-     state, RunStats, info and final queue) and two megakernel drains,
-     B3-pr's device time, busy shares, and the first 64 rounds against the
-     plain fused drain on the card (timed) and the first 16 against the
-     plain drain on the CPU (bitwise); the persistent drain's device ops a
-     round;
+     under ``single.megakernel`` as one launch of B3-pr and no other:
+     converged (max residue <= eps, no drop), the push invariant within
+     its float32 bound, within 1e-3 of a float64 power iteration; under
+     ``single.persistent`` through B1, B2 and the ordered scatter-add over
+     its first 512 rounds, bitwise equal (state, counters, queue) to the
+     megakernel drain cut alike; 64-round segments equal the whole; at
+     rmat(14) the kernel drain equals the plain drain run on the CPU and
+     a whole persistent drain on the card bit for bit; two megakernel
+     drains, B3-pr's device time, busy shares, and the first 64 rounds
+     against the plain fused drain on the card (timed) and the first 16
+     against the plain drain on the CPU (bitwise); the persistent drain's
+     device ops a round over its first 256 rounds;
   4d. coloring on the same graph likewise: persistent (valid, checked on
      the card; backends auto and torch bitwise equal over the first 256
      rounds), megakernel as one launch of B3-col equal to it, queue and
@@ -198,8 +197,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      requests in ``continuous`` and ``bsp`` mode with the schedule the same
      request lengths give on the CPU at the smoke config; prefill, decode
      and engine times;
-  8. print a ``{"kernels": [...]}`` line, the card's name and power limit,
-     and, last, ``{"ok": true, "device": {...}}``.
+  7b. the other model families at full width in bf16 with seeded random
+     weights, each freed before the next: olmoe-1b-7b (MoE) whole, prefill
+     2 x 4096; falcon-mamba-7b (SSM) whole, 1 x 128; zamba2-1.2b (hybrid)
+     whole, 1 x 512; seamless-m4t-medium (encoder-decoder) whole, 2 x 256
+     text tokens over 2 x 1536 frames; llava-next-34b (VLM) 8 of its 60
+     layers, 2,880 patches + 320 text tokens.  Each prefill through
+     ``attn_impl="auto"`` launches B5 as ``B5_PER_PREFILL`` says, all of it
+     the tensor-core instance; its logits at seeded positions are held,
+     with the plain bf16 path's, against an f32 reference (phase 7's
+     bound); decode steps through the bf16 cache (the recurrence for the
+     SSM and the hybrid) replay sequence 0 against the same reference.
+     For the MoE: the routing flips between the kernel path and the
+     reference are counted and bounded, the logits are held where no flip
+     came before and, at every position, against a reference routed as the
+     kernel path was; the dropped count is printed; the engine in both
+     modes keeps the CPU smoke schedule; one decode step under the
+     profiler.  Meanwhile ``repro_torch.examples.quickstart`` runs as a
+     child on the card and one on the CPU, and every line they print but
+     PageRank's error must agree.  kimi-k2-1t (1.04 T parameters) is not
+     run: olmoe-1b-7b covers its family;
+  8. print each phase's wall, a ``{"kernels": [...]}`` line, the card's
+     name and power limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the reference package.  Big outputs
 go to ``chiprun_out/chip_smoke/``.
@@ -228,9 +247,25 @@ INF = 0x7FFFFFFF
 STARTED = time.perf_counter()
 
 
+#: (phase label, seconds since the start) of each phase's first line
+PHASE_STARTS = []
+
+
 def log(*parts) -> None:
-    """Print a line stamped with the seconds since the script started."""
-    print(f"{time.perf_counter() - STARTED:7.1f}s", *parts, flush=True)
+    """Print a line stamped with the seconds since the script started; a
+    line that starts with a phase label ("[4c] ...") starts that phase."""
+    now = time.perf_counter() - STARTED
+    if parts and str(parts[0]).startswith("["):
+        PHASE_STARTS.append((str(parts[0]).split("]")[0] + "]", now))
+    print(f"{now:7.1f}s", *parts, flush=True)
+
+
+def phase_walls() -> dict:
+    """Seconds from each phase's start to the next one's (the last phase's
+    to now)."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter() - STARTED]
+    return {label: end - start
+            for (label, start), end in zip(PHASE_STARTS, ends)}
 
 
 def card_line() -> str:
@@ -1025,75 +1060,78 @@ def first_rounds_times(algo: str, graph, kernel_name: str,
 
 
 def pagerank_path(graph, card: str, small_scale: int) -> dict:
-    """Phase 4c: PageRank on ``graph`` through B1, B2 and the ordered
-    scatter-add (``single.persistent``) and through B3-pr
-    (``single.megakernel``), held against each other bitwise, against the
-    push invariant and against a float64 power iteration; 64-round
-    segments against the whole; the kernel drain at ``small_scale``
-    against the plain drain on the CPU."""
+    """Phase 4c: PageRank on ``graph`` through B3-pr (``single.megakernel``)
+    whole, and through B1, B2 and the ordered scatter-add
+    (``single.persistent``) over its first PR_CUT rounds: the two cut
+    alike held against each other bitwise (queue included), the whole
+    kernel drain against the push invariant and a float64 power
+    iteration, and against its 64-round segments; at ``small_scale`` the
+    kernel drain against the plain drain on the CPU and against a whole
+    persistent drain on the card.  The full-size persistent drain is cut:
+    whole, it is about a minute of host-bound rounds on an H100."""
     from repro_torch.core.scheduler import POLL_EVERY
     from repro_torch.graph import rmat
     from repro_torch.kernels.drain_loop.pagerank_drain import (
         pagerank_drain_cuda)
 
-    cfg_p = algo_config("single.persistent")
     cfg_m = algo_config("single.megakernel")
     walls = {"persistent": [], "megakernel": []}
-    # one persistent drain (71-76 s at rmat(21)) gives the state, RunStats,
-    # info and final queue, set up by hand as execute sets it up
     reset_counts()
-    carry_p, secs = drive("pagerank", graph, cfg_p, PR_PARAMS)
-    counts = read_counts()
-    state, stats, info = outcome(carry_p, megakernel=False)
-    walls["persistent"].append(secs)
-    rounds = info["rounds"]
-    steps = -(-rounds // POLL_EVERY) * POLL_EVERY
-    max_res = float(state.residue.max())
-    log(f"    single.persistent: counts={counts} info={info} max_residue "
-        f"{max_res:.4g}; drain {secs:.3f} s, {1e3 * secs / rounds:.3f} "
-        f"ms/round  [{card}]")
-    if counts != only(lbs=steps, compact=2 * steps + 1,
-                      ordered_scatter_add=steps):
-        raise AssertionError(f"expected per predicated step ({steps}) one "
-                             f"LBS, one ordered scatter-add and two "
-                             f"compactions (the body's push and on_empty's), "
-                             f"plus the seed push's compaction, and no "
-                             f"other: {counts}")
-    if not (rounds < algo_config("single.persistent").max_rounds
-            and max_res <= PR_PARAMS["eps"] and info["dropped"] == 0):
-        raise AssertionError(f"PageRank did not converge: {info}, "
-                             f"max_residue {max_res}")
-
-    reset_counts()
-    state_m, stats_m, info_m, secs_m = run_algo("pagerank", graph, cfg_m,
-                                                PR_PARAMS)
+    state, stats, info, secs_m = run_algo("pagerank", graph, cfg_m,
+                                          PR_PARAMS)
     counts_m = read_counts()
     units = int(pagerank_drain_cuda.units_expanded)
     walls["megakernel"].append(secs_m)
-    log(f"    single.megakernel: counts={counts_m} info={info_m} units "
-        f"expanded {units}; drain {secs_m:.3f} s  [{card}]")
+    rounds = info["rounds"]
+    max_res = float(state.residue.max())
+    log(f"    single.megakernel: counts={counts_m} info={info} units "
+        f"expanded {units} max_residue {max_res:.4g}; drain {secs_m:.3f} s"
+        f"  [{card}]")
     if counts_m != only(pagerank_drain=1):
         raise AssertionError(f"expected exactly one PageRank drain launch "
                              f"and no other: {counts_m}")
-    if not same_leaves(state_m, state) \
-            or [int(x) for x in stats_m] != [int(x) for x in stats] \
-            or info_m != {**info, "launches": 1}:
-        raise AssertionError(f"the megakernel PageRank differs from the "
-                             f"persistent one: {info_m} vs {info}")
-    log("    rank, residue, presence bits, cursor, WorkCounter, RunStats and "
-        "info equal the persistent drain's, bit for bit")
+    if not (rounds < cfg_m.max_rounds and max_res <= PR_PARAMS["eps"]
+            and info["dropped"] == 0):
+        raise AssertionError(f"PageRank did not converge: {info}, "
+                             f"max_residue {max_res}")
 
-    # the final queue: the megakernel drain again, set up by hand, against
-    # the persistent drain's carry
+    # the persistent drain cut at PR_CUT rounds (whole where the drain is
+    # shorter), set up by hand as execute sets it up, so that its final
+    # queue comes back
+    cut = min(PR_CUT, rounds)
+    reset_counts()
+    carry_p, secs = drive("pagerank", graph, algo_config(
+        "single.persistent", max_rounds=cut), PR_PARAMS)
+    counts = read_counts()
+    walls["persistent"].append(secs)
+    steps = -(-int(carry_p[2]) // POLL_EVERY) * POLL_EVERY
+    log(f"    single.persistent, first {int(carry_p[2])} rounds: "
+        f"counts={counts}; {secs:.3f} s, "
+        f"{1e3 * secs / int(carry_p[2]):.3f} ms/round  [{card}]")
+    if int(carry_p[2]) != cut or counts != only(
+            lbs=steps, compact=2 * steps + 1, ordered_scatter_add=steps):
+        raise AssertionError(f"expected {cut} rounds and per predicated "
+                             f"step ({steps}) one LBS, one ordered "
+                             f"scatter-add and two compactions (the body's "
+                             f"push and on_empty's), plus the seed push's "
+                             f"compaction, and no other: {counts}")
+
+    # the kernel drain cut alike against the persistent one; then the whole
+    # drain again, set up by hand, against the run above
+    carry_mc, _ = drive("pagerank", graph, algo_config(
+        "single.megakernel", max_rounds=cut), PR_PARAMS)
+    same_or_raise(f"PageRank megakernel vs persistent, first {cut} "
+                  f"rounds", carry_mc, carry_p)
+    log(f"    first {cut} rounds: rank, residue, presence bits, cursor, "
+        f"WorkCounter, queue and counters equal the persistent drain's, bit "
+        f"for bit: {scalars(carry_mc)}")
     carry_m, secs = drive("pagerank", graph, cfg_m, PR_PARAMS)
     walls["megakernel"].append(secs)
-    if not same_leaves(carry_m, carry_p) or not same_leaves(carry_m[1],
-                                                            state):
-        raise AssertionError(f"megakernel carry differs from the persistent "
-                             f"one: {scalars(carry_m)} vs {scalars(carry_p)}")
-    log(f"    final queue and counters equal the persistent drain's: "
-        f"(head, tail, dropped, rounds, processed, cursor, work, splits, "
-        f"counter rounds) = {scalars(carry_m)}")
+    if not same_leaves(carry_m[1], state) or [
+            int(x) for x in (carry_m[2], carry_m[3], carry_m[0].dropped)] \
+            != [int(x) for x in stats]:
+        raise AssertionError(f"two whole megakernel drains differ: "
+                             f"{scalars(carry_m)} vs {info}")
 
     inv = pagerank_invariant(graph, state, units, int(state.counter.work))
     log(f"    push invariant in float64: sum_v |err_v|/x_v = "
@@ -1123,9 +1161,14 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
         raise AssertionError(f"at rmat({small_scale}) the PageRank drain "
                              f"kernel differs from the plain drain on the "
                              f"CPU: {scalars(small_k)} vs {scalars(small_h)}")
+    small_p, small_secs = drive("pagerank", small, algo_config(
+        "single.persistent", workers=256), PR_PARAMS)
+    same_or_raise(f"rmat({small_scale}) PageRank persistent vs the drain "
+                  f"kernel, whole", small_p, small_k)
     log(f"    rmat({small_scale}) W={cfg_small.wavefront}: the drain kernel "
         f"equals the plain fused drain run on the CPU bit for bit "
-        f"({host_secs:.1f} s there); {scalars(small_k)}")
+        f"({host_secs:.1f} s there) and the whole single.persistent drain "
+        f"on the card ({small_secs:.2f} s); {scalars(small_k)}")
 
     # busy share: the megakernel drain, and the first 256 persistent rounds
     held = {}
@@ -1153,7 +1196,9 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
            "work_per_n": int(state.counter.work) / graph.num_vertices,
            "walls": walls, "invariant": inv, "segments_of_64": segments,
            "small": {"scale": small_scale, "carry": scalars(small_k),
-                     "cpu_seconds": host_secs},
+                     "cpu_seconds": host_secs,
+                     "persistent_seconds": small_secs},
+           "persistent_cut_rounds": int(carry_p[2]),
            "megakernel_profiled": {"seconds": held["secs"],
                                    "device_ms": mega_dev_ms,
                                    "b3_ms": b3_ms,
@@ -1169,10 +1214,10 @@ def pagerank_path(graph, card: str, small_scale: int) -> dict:
            "first_rounds_n": int(fc[2])}
     mean_p = sum(walls["persistent"]) / len(walls["persistent"])
     mean_m = sum(walls["megakernel"]) / len(walls["megakernel"])
-    log(f"    drains (persistent once, the first; megakernel twice, after "
-        f"it): persistent {walls['persistent']} s, megakernel "
+    log(f"    drains (megakernel twice, whole; persistent once, its first "
+        f"{cut} rounds): persistent {walls['persistent']} s, megakernel "
         f"{walls['megakernel']} s; {rounds} rounds, work/n "
-        f"{out['work_per_n']:.3f}: {1e3 * mean_p / rounds:.3f} vs "
+        f"{out['work_per_n']:.3f}: {1e3 * mean_p / cut:.3f} vs "
         f"{1e3 * mean_m / rounds:.4f} ms/round  [{card}]")
     log(f"    B3-pr pagerank_drain: {b3_ms:.3f} ms of device time for the "
         f"drain ({1e3 * b3_ms / rounds:.2f} us/round), busy share "
@@ -4314,37 +4359,39 @@ F32_REL = 1e-3
 F32_CONTROL_SHARE = 0.1
 
 
-def lm_positions(seed: int = 0) -> tuple:
+def lm_positions(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ,
+                 decode_steps: int = DECODE_STEPS) -> tuple:
     """(batch index, position) pairs whose logits are kept: 64 seeded ones,
-    each sequence's last position, and the first DECODE_STEPS of
+    each sequence's last position, and the first ``decode_steps`` of
     sequence 0 (the decode replay)."""
     rng = np.random.default_rng(seed)
-    rows = list(rng.integers(0, LM_BATCH, 64))
-    cols = list(rng.integers(0, LM_SEQ, 64))
-    rows += list(range(LM_BATCH)) + [0] * DECODE_STEPS
-    cols += [LM_SEQ - 1] * LM_BATCH + list(range(DECODE_STEPS))
+    rows = list(rng.integers(0, batch, 64))
+    cols = list(rng.integers(0, seq, 64))
+    rows += list(range(batch)) + [0] * decode_steps
+    cols += [seq - 1] * batch + list(range(decode_steps))
     return (torch.tensor(rows, device="cuda"),
             torch.tensor(cols, device="cuda"))
 
 
-def sampled_prefill(params, cfg, tokens, where, attn_impl: str) -> tuple:
-    """(f32 logits at ``where``, host seconds, B5 launches) of one prefill;
-    the full logits are dropped at once (8.4 GB in f32)."""
+def sampled_prefill(params, cfg, batch: dict, where, attn_impl: str) -> tuple:
+    """(f32 logits at ``where``, host seconds, B5 launches) of one prefill
+    of ``batch``; the full logits are dropped at once (8.4 GB in f32 for
+    minitron-4b at 2 x 4096)."""
     from repro_torch.models import transformer as T
 
+    b, n_text = batch["tokens"].shape
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = T.prefill(params, cfg, {"tokens": tokens}, LM_SEQ,
-                       attn_impl=attn_impl)
+    logits = T.prefill(params, cfg, batch, n_text, attn_impl=attn_impl)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
     if not torch.isfinite(logits).all() or logits.shape != (
-            LM_BATCH, LM_SEQ, cfg.vocab_size):
-        raise AssertionError(f"prefill ({attn_impl}, {logits.dtype}) gave "
-                             f"non-finite logits or shape "
-                             f"{tuple(logits.shape)}")
+            b, n_text, cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} prefill ({attn_impl}, "
+                             f"{logits.dtype}) gave non-finite logits or "
+                             f"shape {tuple(logits.shape)}")
     kept = logits[where].float()
     del logits
     torch.cuda.empty_cache()
@@ -4355,8 +4402,8 @@ def sampled_prefill(params, cfg, tokens, where, attn_impl: str) -> tuple:
     return kept, secs, counts["flash_attention"]
 
 
-def smoke_schedule(requests) -> dict:
-    """The engine's schedule for these request lengths at the smoke
+def smoke_schedule(requests, arch: str = LM_ARCH) -> dict:
+    """The engine's schedule for these request lengths at ``arch``'s smoke
     config on the CPU: (wavefronts, mean occupancy) per mode.  The
     schedule depends only on the lengths, so tokens are taken modulo the
     smoke vocabulary."""
@@ -4365,7 +4412,7 @@ def smoke_schedule(requests) -> dict:
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
-    cfg = smoke_config(LM_ARCH)
+    cfg = smoke_config(arch)
     params = init_params(T.model_spec(cfg), 0, torch.float32, device="cpu")
     small = [Request(r.uid, [int(t) % cfg.vocab_size for t in r.prompt],
                      r.max_new_tokens) for r in requests]
@@ -4400,7 +4447,8 @@ def lm_path(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: bf16 prefill through B5, counts set to 0 just before
-    got, secs_cold, launches = sampled_prefill(params, cfg, tokens, where,
+    batch = {"tokens": tokens}
+    got, secs_cold, launches = sampled_prefill(params, cfg, batch, where,
                                                "auto")
     instances = flash_instances()
     if launches != cfg.num_layers or instances != {
@@ -4408,8 +4456,8 @@ def lm_path(card: str) -> dict:
         raise AssertionError(f"expected one B5 launch per layer "
                              f"({cfg.num_layers}), all of the tensor-core "
                              f"instance, got {launches} {instances}")
-    _, secs_warm, _ = sampled_prefill(params, cfg, tokens, where, "auto")
-    plain, secs_plain, plain_launches = sampled_prefill(params, cfg, tokens,
+    _, secs_warm, _ = sampled_prefill(params, cfg, batch, where, "auto")
+    plain, secs_plain, plain_launches = sampled_prefill(params, cfg, batch,
                                                         where, "torch")
     if plain_launches:
         raise AssertionError("attn_impl='torch' launched B5")
@@ -4419,11 +4467,11 @@ def lm_path(card: str) -> dict:
         f"{secs_plain:.3f} s  [{card}]")
 
     params32 = tree_map(lambda a: a.float(), params)
-    ref, secs_ref, _ = sampled_prefill(params32, cfg, tokens, where, "torch")
-    got32, secs_k32, launches32 = sampled_prefill(params32, cfg, tokens,
+    ref, secs_ref, _ = sampled_prefill(params32, cfg, batch, where, "torch")
+    got32, secs_k32, launches32 = sampled_prefill(params32, cfg, batch,
                                                   where, "auto")
     instances32 = flash_instances()
-    control, _, _ = sampled_prefill(params32, cfg, tokens, where, "blocked")
+    control, _, _ = sampled_prefill(params32, cfg, batch, where, "blocked")
     del params32
     torch.cuda.empty_cache()
     if launches32 != cfg.num_layers or instances32 != {
@@ -4574,6 +4622,535 @@ def lm_path(card: str) -> dict:
                         "gemm_ms": gemm_ms, "logits_ms": logits_ms,
                         "rows": rows[:20]},
             "peak_bytes": peak}
+
+
+# --------------------------------------- phase 7b, the other model families
+#: each family's configuration on the card: (batch, text tokens a sequence,
+#: layers run (None: all), decode steps replayed).  The cuts are listed in
+#: PERF.md section 4: olmoe-1b-7b runs whole; falcon-mamba-7b's prefill is
+#: short because its scan is a host loop of two device ops a step; the VLM
+#: runs 8 of its 60 layers, whose 68.8 GB in bf16 would not sit beside the
+#: f32 reference; its text is 320 tokens, so that patches and text make
+#: 3,200 positions, the multiple of 128 that B5 takes
+FAMILIES = {"olmoe-1b-7b": (2, 4096, None, 16),
+            "falcon-mamba-7b": (1, 128, None, 8),
+            "zamba2-1.2b": (1, 512, None, 8),
+            "seamless-m4t-medium": (2, 256, None, 8),
+            "llava-next-34b": (1, 320, 8, 8)}
+#: B5 launches of one prefill: a layer (MoE, VLM), the hybrid's shared block
+#: once a group, the encoder-decoder's decoder layers (its encoder and
+#: cross-attention run the plain einsum path, as the reference's), none in
+#: the SSM
+B5_PER_PREFILL = {"olmoe-1b-7b": 16, "falcon-mamba-7b": 0, "zamba2-1.2b": 2,
+                  "seamless-m4t-medium": 12, "llava-next-34b": 8}
+#: MoE routing flips: the share of (token, layer) routings whose expert set
+#: differs between the bf16 kernel path and the f32 reference may be at
+#: most FLIP_FACTOR x the plain bf16 path's share + FLIP_SLACK (B5 adds no
+#: flips beyond bf16 rounding's), and never past FLIP_CAP (a routing that
+#: picked experts at random would differ almost everywhere); PERF.md 6
+FLIP_FACTOR = 1.25
+FLIP_SLACK = 0.01
+FLIP_CAP = 0.5
+#: the SSM and the hybrid: bf16 against the f32 reference held after their
+#: first two layers (zamba2-1.2b: two groups of one mamba layer and the
+#: shared block), within SSM_BF16_REL x max |logit|.  Through the whole
+#: random-weight stack bf16 noise grows to the logits' own scale (it is
+#: printed there, not held); two unrelated logit rows differ by up to
+#: about twice it.  PERF.md 6
+SSM_SHALLOW = {"falcon-mamba-7b": {"num_layers": 2},
+               "zamba2-1.2b": {"num_layers": 2, "attn_every": 1}}
+SSM_BF16_REL = 0.4
+
+
+class MoERecorder:
+    """While entered, wraps ``models.moe.route`` and ``models.moe.apply_moe``:
+    records each routing's expert ids and each layer's dropped count, and,
+    with ``force`` set (``force(call_index) -> ids``), routes to given ids
+    with the gate values of the call's own probabilities."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.route0, self.apply0 = moe.route, moe.apply_moe
+        self.routes, self.dropped, self.force = [], [], None
+
+    def __enter__(self):
+        self.moe.route, self.moe.apply_moe = self._route, self._apply
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.apply_moe = self.route0, self.apply0
+
+    def take(self) -> tuple:
+        """(the expert ids of each call, the dropped total) since the last
+        take."""
+        routes, dropped = self.routes, self.dropped
+        self.routes, self.dropped = [], []
+        return routes, sum(int(d) for d in dropped)
+
+    def _route(self, params, cfg, xf):
+        probs, vals, idx = self.route0(params, cfg, xf)
+        if self.force is not None:
+            idx = self.force(len(self.routes))
+            vals = probs.gather(1, idx)
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+        self.routes.append(idx)
+        return probs, vals, idx
+
+    def _apply(self, *args, **kw):
+        out, metrics = self.apply0(*args, **kw)
+        self.dropped.append(metrics["dropped"])
+        return out, metrics
+
+
+class B5Capture:
+    """While entered, keeps the inputs of the first and the last B5 launch
+    of ``ops.multihead_attention``: the main path's own tensors, on which
+    :func:`check_captured` holds the kernel against ``attention_ref``."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.kernel0 = ops, ops.flash_attention_cuda
+        self.first = self.last = None
+
+    def __enter__(self):
+        self.ops.flash_attention_cuda = self._launch
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_cuda = self.kernel0
+
+    def _launch(self, q, k, v, **kw):
+        if self.first is None:
+            self.first = (q, k, v, kw)
+        else:
+            self.last = (q, k, v, kw)
+        return self.kernel0(q, k, v, **kw)
+
+    def calls(self) -> list:
+        return [c for c in (self.first, self.last) if c is not None]
+
+
+def check_captured(arch: str, calls: list, card: str) -> list:
+    """B5 against ``attention_ref`` on each captured launch's inputs, each
+    element within one bf16 step, as phase 3 holds it.  Returns the max
+    |error| of each."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    errs = []
+    for which, (q, k, v, kw) in zip(("first", "last"), calls):
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        excess = float(bf16_excess(got, want).max())
+        log(f"    {arch}: B5's {which} prefill launch, q {str(q.dtype)[6:]}"
+            f"{list(q.shape)}, k/v {list(k.shape)}, {kw}, rerun on its own "
+            f"inputs against attention_ref: max_abs_err {err:.3g}, within "
+            f"one bf16 step everywhere (excess {excess:.3g})  [{card}]")
+        if not excess <= 1e-6:
+            raise AssertionError(f"{arch}: B5 disagrees with attention_ref "
+                                 f"on its {which} prefill launch's inputs")
+        errs.append(err)
+        del got, want
+    return errs
+
+
+def ssm_shallow(arch: str, batch_n: int, n_text: int, card: str) -> dict:
+    """The SSM's or the hybrid's first two layers (SSM_SHALLOW): bf16 logits
+    through the kernel path against the f32 plain reference, within
+    SSM_BF16_REL x max |logit|, and the hybrid's also within
+    :func:`bf16_bound` of its plain bf16 path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), **SSM_SHALLOW[arch])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(T.model_spec(cfg), 0, torch.bfloat16, device="cuda")
+    batch = family_inputs(cfg, batch_n, n_text)
+    where = lm_positions(1, batch_n, n_text, 0)
+    want = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    got, _, launches = sampled_prefill(params, cfg, batch, where, "auto")
+    if launches != want:
+        raise AssertionError(f"{arch} at {cfg.num_layers} layers: "
+                             f"{launches} B5 launches, not {want}")
+    plain = (sampled_prefill(params, cfg, batch, where, "torch")[0] if want
+             else got)
+    ref = sampled_prefill(tree_map(lambda a: a.float(), params), cfg32,
+                          batch, where, "torch")[0]
+    scale = float(ref.abs().max())
+    err_k, err_p, limit = bf16_bound(ref, plain, got, scale)
+    if not want:  # no attention: the plain path is the kernel path
+        limit = float("inf")
+    rel_limit = SSM_BF16_REL * scale
+    log(f"    {arch} at its first {cfg.num_layers} layers "
+        f"({SSM_SHALLOW[arch]}), bf16 prefill {batch_n}x{n_text}, {launches} "
+        f"B5 launches: logits vs the f32 reference at {len(where[0])} "
+        f"positions (max |logit| {scale:.4g}): kernel {err_k:.4g}, plain "
+        f"{err_p:.4g}; limits {SSM_BF16_REL} x max |logit| = "
+        f"{rel_limit:.4g}{'' if not want else f' and {limit:.4g}'}  [{card}]")
+    if not err_k <= min(rel_limit, limit):
+        raise AssertionError(f"{arch} at {cfg.num_layers} layers: bf16 "
+                             f"logits err {err_k} > {min(rel_limit, limit)}")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "launches": launches, "kernel": err_k,
+            "plain": err_p, "limit": min(rel_limit, limit),
+            "max_logit": scale}
+
+
+def flipped(a: list, b: list) -> torch.Tensor:
+    """[layers, tokens] bool: where two runs' top-k expert sets differ."""
+    return torch.stack([(x.sort(dim=1).values != y.sort(dim=1).values)
+                        .any(dim=1) for x, y in zip(a, b)])
+
+
+def bf16_bound(ref, plain, got, scale: float) -> tuple:
+    """(kernel path's error, plain path's, the limit BF16_ERR_FACTOR x plain
+    + the abs term)."""
+    abs_term = BF16_ABS_STEPS * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    err_k = float((got - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    return err_k, err_p, BF16_ERR_FACTOR * err_p + abs_term
+
+
+def family_inputs(cfg, batch_n: int, n_text: int) -> dict:
+    """Seeded tokens, and the VLM's patch embeddings or the encoder-decoder's
+    frames, made in bf16 on the card (exact in the f32 reference too)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_n, n_text),
+                                     generator=g, device="cuda")}
+    extra = {"vlm": "patch_emb", "encdec": "frames"}.get(cfg.family)
+    if extra:
+        batch[extra] = torch.randn(batch_n, cfg.frontend_len, cfg.d_model,
+                                   generator=g, device="cuda").bfloat16()
+    return batch
+
+
+def family_path(arch: str, card: str) -> dict:
+    """Phase 7b for one family: a bf16 prefill through B5 (its launches as
+    B5_PER_PREFILL says, all of the tensor-core instance; its first and last
+    launch rerun against ``attention_ref`` on their own inputs), the plain
+    bf16 path, an f32 plain reference at the sampled positions; decode
+    steps through the bf16 cache replayed against them.  MoE also: the
+    routing flips, a reference routed as the kernel path was, the dropped
+    count, the engine and a profiled step.  The SSM and the hybrid: bf16
+    held at their first two layers (:func:`ssm_shallow`), the recurrence
+    against the scan in f32 at full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    batch_n, n_text, layers, n_dec = FAMILIES[arch]
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    moe = cfg.family == "moe"
+    out = {}
+    if cfg.ssm_state:
+        out["shallow"] = ssm_shallow(arch, batch_n, n_text, card)
+    t0 = time.perf_counter()
+    params = init_params(T.model_spec(cfg), 0, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    out.update(params=cfg.param_count(), layers=cfg.num_layers,
+               batch=batch_n, text_tokens=n_text,
+               init_seconds=time.perf_counter() - t0)
+    batch = family_inputs(cfg, batch_n, n_text)
+    batch32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in batch.items()}
+    where = lm_positions(1, batch_n, n_text, n_dec)
+    want = B5_PER_PREFILL[arch]
+    secs = {}
+    with MoERecorder() as rec:
+        with B5Capture() as cap:
+            got, secs["kernel"], launches = sampled_prefill(
+                params, cfg, batch, where, "auto")
+        instances = flash_instances()
+        routes_k, dropped_k = rec.take()
+        if launches != want or instances != {"tensor_core": want,
+                                             "cuda_core": 0}:
+            raise AssertionError(f"{arch}: expected {want} B5 launches, all "
+                                 f"of the tensor-core instance, got "
+                                 f"{launches} {instances}")
+        out["b5_captured_err"] = check_captured(arch, cap.calls(), card)
+        del cap
+        if moe:
+            _, secs["kernel_warm"], _ = sampled_prefill(params, cfg, batch,
+                                                        where, "auto")
+            rec.take()
+        if want:
+            plain, secs["plain"], n = sampled_prefill(params, cfg, batch,
+                                                      where, "torch")
+            if n:
+                raise AssertionError(f"{arch}: attn_impl='torch' launched B5")
+        else:  # no attention: the plain path is the same computation
+            plain = got
+        routes_p, dropped_p = rec.take()
+        params32 = tree_map(lambda a: a.float(), params)
+        ref, secs["f32_reference"], _ = sampled_prefill(
+            params32, cfg32, batch32, where, "torch")
+        routes_f, dropped_f = rec.take()
+        if moe:
+            # a reference and a plain path routed as the kernel path was:
+            # what is left between them is arithmetic, at every position
+            rec.force = lambda i: routes_k[i % cfg.num_layers]
+            ref_forced, _, _ = sampled_prefill(params32, cfg32, batch32,
+                                               where, "torch")
+            plain_forced, _, _ = sampled_prefill(params, cfg, batch, where,
+                                                 "torch")
+            rec.force = None
+            rec.take()
+        if cfg.family == "vlm":
+            # decode reads text only: its references are a text-only prefill
+            text = {"tokens": batch["tokens"][:1, :n_dec]}
+            every = (torch.zeros(n_dec, dtype=torch.long, device="cuda"),
+                     torch.arange(n_dec, device="cuda"))
+            dec_ref = sampled_prefill(params32, cfg32, text, every,
+                                      "torch")[0]
+            dec_plain = sampled_prefill(params, cfg, text, every, "torch")[0]
+
+        scale = float(ref.abs().max())
+        dec_rows = slice(len(where[0]) - n_dec, None)
+        if moe:
+            err_k, err_p, limit = bf16_bound(ref_forced, plain_forced, got,
+                                             scale)
+            dec_ref, dec_plain = ref_forced[dec_rows], plain_forced[dec_rows]
+        else:
+            err_k, err_p, limit = bf16_bound(ref, plain, got, scale)
+            if cfg.family != "vlm":
+                dec_ref, dec_plain = ref[dec_rows], plain[dec_rows]
+        out["errors"] = {"kernel": err_k, "plain": err_p, "limit": limit,
+                         "max_logit": scale}
+        # the SSMs' full-depth bf16 logits are noise of their own scale:
+        # printed, and held at their first two layers instead
+        logits_held = not cfg.ssm_state
+        log(f"    {arch}: {out['params']} parameters, {cfg.num_layers} "
+            f"layers, bf16 prefill {batch_n}x{n_text}"
+            f"{' + ' + str(cfg.frontend_len) + ' patches' if cfg.family == 'vlm' else ''}"
+            f"{' over ' + str(cfg.frontend_len) + ' frames' if cfg.family == 'encdec' else ''}"
+            f": {launches} B5 launches ({instances}); kernel path "
+            f"{secs['kernel']:.3f} s, plain {secs.get('plain', 0.0):.3f} s, "
+            f"f32 reference {secs['f32_reference']:.3f} s; logits vs the f32 "
+            f"reference{' routed as the kernel path' if moe else ''} at "
+            f"{len(where[0])} positions (max |logit| {scale:.4g}): kernel "
+            f"{err_k:.4g}, plain {err_p:.4g}, "
+            f"{f'limit {limit:.4g}' if logits_held else 'not held (bf16 noise through the random stack)'}"
+            f"  [{card}]")
+        if logits_held and not err_k <= limit:
+            raise AssertionError(f"{arch}: bf16 kernel-path logits err "
+                                 f"{err_k} > {limit}")
+
+        if moe:
+            n_tok = batch_n * n_text
+            flip_k = flipped(routes_k, routes_f)          # [layers, tokens]
+            flip_p = flipped(routes_p, routes_f)
+            share_k = float(flip_k.float().mean())
+            share_p = float(flip_p.float().mean())
+            tok_k = flip_k.any(dim=0)
+            out["moe"] = {
+                "dropped": {"kernel": dropped_k, "plain": dropped_p,
+                            "f32_reference": dropped_f},
+                "capacity_factor": cfg.capacity_factor,
+                "flip_share": share_k, "plain_flip_share": share_p,
+                "flipped_tokens": int(tok_k.sum()), "tokens": n_tok,
+                "flips_by_layer": flip_k.float().mean(dim=1).tolist()}
+            log(f"    {arch} MoE at capacity factor {cfg.capacity_factor}: "
+                f"dropped {dropped_k} (plain {dropped_p}, f32 {dropped_f}) "
+                f"of {n_tok * cfg.num_experts_per_tok * cfg.num_layers} "
+                f"assignments ({cfg.num_layers} layers); routing flips against the f32 "
+                f"reference: {int(tok_k.sum())} of {n_tok} tokens, "
+                f"{share_k:.4f} of (token, layer) routings (plain bf16 "
+                f"{share_p:.4f}; limit {FLIP_FACTOR} x plain + {FLIP_SLACK},"
+                f" at most {FLIP_CAP}); by layer "
+                f"{[round(x, 4) for x in out['moe']['flips_by_layer']]}"
+                f"  [{card}]")
+            if not (share_k <= FLIP_FACTOR * share_p + FLIP_SLACK
+                    and share_k <= FLIP_CAP):
+                raise AssertionError(f"{arch}: routing flip share {share_k} "
+                                     f"past its limits (plain {share_p})")
+
+        # decode: the first n_dec tokens of sequence 0 through the cache
+        def replay(p, c, dtype):
+            cache = T.init_cache(c, 1, n_dec, dtype, device="cuda")
+            if c.family == "encdec":
+                cache = cache._replace(enc=T._encode(p, c,
+                                                     batch["frames"][:1]))
+            rows = []
+            for t in range(n_dec):
+                if moe:
+                    rec.force = (lambda i, t=t:
+                                 routes_k[i % cfg.num_layers][t:t + 1])
+                logits, cache = T.decode_step(p, c, cache,
+                                              batch["tokens"][:1, t:t + 1])
+                rows.append(logits[0].float())
+            rec.force = None
+            rec.take()
+            return torch.stack(rows), cache
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec, cache = replay(params, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        secs["decode_step"] = (time.perf_counter() - t0) / n_dec
+        if cfg.ssm_state:
+            # the recurrence against the scan in f32, where bf16 rounding
+            # (which the deep random-weight stack amplifies) is out of it
+            dec32 = replay(params32, cfg32, torch.float32)[0]
+            rec32 = float((dec32 - ref[dec_rows]).abs().max())
+            out["errors"]["decode_f32"] = rec32
+            log(f"    {arch}: {n_dec} f32 decode steps (the recurrence) vs "
+                f"the f32 prefill (the scan): {rec32:.4g} (limit {F32_REL} "
+                f"x max |logit| = {F32_REL * scale:.4g})  [{card}]")
+            if not rec32 <= F32_REL * scale:
+                raise AssertionError(f"{arch}: f32 recurrence vs scan err "
+                                     f"{rec32}")
+        del params32
+        torch.cuda.empty_cache()
+    if any(read_counts().values()):
+        raise AssertionError(f"{arch}: decode launched a kernel: "
+                             f"{read_counts()}")
+    dec_err, dec_plain_err, dec_limit = bf16_bound(dec_ref, dec_plain, dec,
+                                                   scale)
+    out["errors"].update(decode=dec_err, decode_plain=dec_plain_err,
+                         decode_limit=dec_limit)
+    log(f"    {arch}: {n_dec} decode steps through the bf16 cache "
+        f"({'the recurrence' if cfg.ssm_state else 'the KV cache'}) vs the "
+        f"f32 {'text-only ' if cfg.family == 'vlm' else ''}reference "
+        f"{'routed as the kernel path ' if moe else ''}at the same "
+        f"positions: {dec_err:.4g} (plain prefill {dec_plain_err:.4g}; "
+        f"{f'limit {dec_limit:.4g}' if logits_held else 'not held: the f32 recurrence is'}"
+        f"); {1e3 * secs['decode_step']:.2f} ms a step (B=1)  [{card}]")
+    if logits_held and not dec_err <= dec_limit:
+        raise AssertionError(f"{arch}: decode logits err {dec_err} > "
+                             f"{dec_limit}")
+    out.update(launches=launches, instances=instances, seconds=secs,
+               b5_shape=f"q bf16[{batch_n * cfg.num_heads}, "
+                        f"{n_text + (cfg.frontend_len if cfg.family == 'vlm' else 0)}"
+                        f", {cfg.hd}], k/v bf16[{batch_n * cfg.num_kv_heads}"
+                        f", same, {cfg.hd}], causal"
+                        f"{', window ' + str(cfg.sliding_window) if cfg.sliding_window else ''}")
+
+    if moe:
+        requests = synthetic_requests(8, cfg.vocab_size, seed=0)
+        want_schedule = smoke_schedule(requests, arch)
+        out["engine"] = {}
+        for mode in ("continuous", "bsp"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ContinuousBatchingEngine(cfg, params, num_slots=4,
+                                           max_len=64, mode=mode,
+                                           dtype=torch.bfloat16).run(requests)
+            torch.cuda.synchronize()
+            st = res["stats"]
+            run = {"wavefronts": st.wavefronts,
+                   "mean_occupancy": st.mean_occupancy,
+                   "completed": st.completed,
+                   "seconds": time.perf_counter() - t0,
+                   "tokens": sum(len(v) for v in res["outputs"].values())}
+            out["engine"][mode] = run
+            log(f"    {arch} engine {mode}: {st.completed} requests, "
+                f"{run['tokens']} tokens, {st.wavefronts} wavefronts (CPU "
+                f"smoke schedule {want_schedule[mode][0]}), occupancy "
+                f"{st.mean_occupancy:.4f} ({want_schedule[mode][1]:.4f}); "
+                f"{run['seconds']:.3f} s  [{card}]")
+            if (st.wavefronts, st.mean_occupancy) != want_schedule[mode] \
+                    or st.completed != len(requests) or any(
+                        len(res["outputs"][r.uid]) != r.max_new_tokens
+                        for r in requests):
+                raise AssertionError(f"{arch} engine {mode}: schedule or "
+                                     f"outputs differ from the CPU smoke "
+                                     f"schedule {want_schedule[mode]}")
+        held = {}
+
+        def one_step():
+            t1 = time.perf_counter()
+            T.decode_step(params, cfg, cache, batch["tokens"][:1, :1])
+            torch.cuda.synchronize()
+            held["secs"] = time.perf_counter() - t1
+
+        dev_ms, rows = device_profile(one_step)
+        ops = sum(calls for _, _, calls in rows)
+        out["decode_profiled"] = {"seconds": held["secs"],
+                                  "device_ms": dev_ms, "device_ops": ops,
+                                  "rows": rows[:10]}
+        log(f"    {arch} one decode step under the profiler: "
+            f"{1e3 * held['secs']:.2f} ms wall, {dev_ms} ms device time in "
+            f"{ops} device ops, busy share "
+            f"{None if dev_ms is None else dev_ms / (1e3 * held['secs'])}"
+            f"  [{card}]")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_examples() -> dict:
+    """``repro_torch.examples.quickstart`` as two child processes, on the
+    card and on the CPU (one thread)."""
+    import os
+
+    procs = {}
+    for device in ("cuda", "cpu"):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        if device == "cpu":
+            env["OMP_NUM_THREADS"] = "1"
+        procs[device] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.quickstart",
+             "--device", device], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(procs[device])
+    return {"procs": procs, "started": time.perf_counter()}
+
+
+def wait_examples(started: dict, card: str) -> dict:
+    """Both quickstart runs: exit 0, and every line equal but the PageRank
+    error, which is printed for both."""
+    import re
+
+    out = {}
+    for device, proc in started["procs"].items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"quickstart --device {device} exited "
+                                 f"{proc.returncode}:\n{stderr[-3000:]}")
+        out[device] = stdout.splitlines()
+    err = re.compile(r" err=(\S+)")
+    masked = {d: [err.sub(" err=*", line) for line in lines]
+              for d, lines in out.items()}
+    if masked["cuda"] != masked["cpu"] or len(masked["cuda"]) < 8:
+        raise AssertionError(f"quickstart on the card differs from the "
+                             f"CPU:\n{out['cuda']}\n{out['cpu']}")
+    errs = {d: [m.group(1) for line in lines for m in [err.search(line)]
+                if m] for d, lines in out.items()}
+    secs = time.perf_counter() - started["started"]
+    log(f"    quickstart --device cuda and --device cpu: every line equal "
+        f"(rounds, work, validity); PageRank err card {errs['cuda']}, CPU "
+        f"{errs['cpu']}; both done {secs:.1f} s after [7b] started  "
+        f"[{card}]")
+    for line in out["cuda"]:
+        if line:
+            log(f"      {line}")
+    return {"lines": out["cuda"], "errors": errs, "seconds": secs}
+
+
+def families_path(card: str) -> dict:
+    """Phase 7b: the examples' children, then each family in turn."""
+    examples = start_examples()
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        out[arch] = family_path(arch, card)
+        out[arch]["wall_seconds"] = time.perf_counter() - t0
+        log(f"    {arch} done in {out[arch]['wall_seconds']:.1f} s  [{card}]")
+    out["examples"] = wait_examples(examples, card)
+    return out
 
 
 def check_guard(dev) -> None:
@@ -5020,6 +5597,10 @@ def main() -> int:
     log(f"[7] LM serving path: {LM_ARCH} at full width and depth, bf16, "
         f"device=cuda, attn_impl=auto")
     lm = lm_path(card)
+    log(f"[7b] the other model families at full width, bf16, device=cuda, "
+        f"attn_impl=auto: {', '.join(FAMILIES)}; quickstart on the card "
+        f"and on the CPU meanwhile")
+    families = families_path(card)
 
     sources = {"lbs": ("src/repro_torch/csrc/lbs.cu",
                        "src/repro/kernels/frontier_expand/kernel.py:59",
@@ -5124,7 +5705,13 @@ def main() -> int:
         "plain_event_ms": flash["plain_event_ms"],
         "library_event_ms": flash["library_event_ms"],
         "shape": "q bf16[48, 4096, 128], k/v bf16[16, 4096, 128], causal "
-                 "(minitron-4b layer, B=2 x T=4096)"})
+                 "(minitron-4b layer, B=2 x T=4096)",
+        # phase 7b: the other families' prefills, each B5 launch counted
+        "family_launches": {
+            arch: {"launches": run["launches"],
+                   "instances": run["instances"], "shape": run["b5_shape"],
+                   "max_abs_err_first_last_launch": run["b5_captured_err"]}
+            for arch, run in families.items() if arch in FAMILIES}})
     scatter_k = scatter_main[1].shape[0]
     (kd, pd, ld), timed_by, (ke, pe, le) = times["ordered_scatter_add"]
     kernels.append({
@@ -5133,6 +5720,8 @@ def main() -> int:
         "replaces": "none: the deterministic form of residue.at[nbr].add "
                     "(src/repro/algorithms/pagerank.py:122)",
         "launches": pr["counts"]["ordered_scatter_add"],
+        "launched_in": f"the persistent PageRank drain's first "
+                       f"{pr['persistent_cut_rounds']} rounds (phase 4c)",
         "bit_equal": scatter_err == 0, "max_abs_err": scatter_err,
         "tolerance": "bitwise against the sequential sum (numpy's add.at)",
         "ms": kd, "plain_ms": pd,
@@ -5417,6 +6006,7 @@ def main() -> int:
                        "small": mega["small"]},
         "flash_attention": flash,
         "lm": lm,
+        "families": families,
         "pagerank": pr,
         "coloring": col,
         "wide": wide,
@@ -5428,8 +6018,12 @@ def main() -> int:
         "kernels": kernels,
     }
     summary["script_seconds"] = time.perf_counter() - started
+    summary["phase_seconds"] = phase_walls()
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
-    log(f"[8] chip_smoke.py took {summary['script_seconds']:.1f} s  [{card}]")
+    log(f"[8] chip_smoke.py took {summary['script_seconds']:.1f} s; phase "
+        f"walls: " + ", ".join(f"{label} {secs:.1f}" for label, secs in
+                               summary["phase_seconds"].items())
+        + f" s  [{card}]")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

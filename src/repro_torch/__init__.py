@@ -9,8 +9,9 @@ PyTorch versions run on CPU tensors.
 
 The port runs speculative BFS, asynchronous PageRank and speculative
 coloring on the single and fused topologies, over static graphs and over
-streams of edge deltas, and serves dense language models (prefill through
-B5, decode through the KV cache):
+streams of edge deltas, and serves language models of every family --
+dense, MoE, SSM, hybrid, encoder-decoder, VLM (prefill through B5, decode
+through each family's cache):
 
   graph       CSR container, the R-MAT / grid / Erdos generators, the
               delta stream, the slotted CSR of streaming graphs
@@ -29,9 +30,12 @@ B5, decode through the KV cache):
   checkpoint  atomic checkpoints of the port's trees
   obs, server the trace ring and collector; the fused lane's encoding
   configs     the ten model configurations (data only)
-  models      parameter specs, layers, the dense transformer
+  models      parameter specs, layers, the MoE layer, the Mamba block, the
+              family-dispatched transformer
   serving     the continuous-batching engine
   launch      the serving CLI (``python -m repro_torch.launch.serve``)
+  examples    the reference's examples (``python -m
+              repro_torch.examples.quickstart``, ...)
   convert     numpy <-> port objects, for handing state and weights
               across packages
 """

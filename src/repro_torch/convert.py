@@ -3,8 +3,9 @@
 The reference keeps its graphs, queues and algorithm states as pytrees of
 arrays; ``np.asarray`` of each leaf hands them to these constructors, and
 :func:`to_numpy` hands the port's objects back.  The tests use this to
-give both packages the same graph, the same mid-drain queue and state, and
-the same model weights (``params_from_numpy``).
+give both packages the same graph, the same mid-drain queue and state, the
+same model weights (``params_from_numpy``) and the same decode cache
+(``cache_from_numpy``).
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ from .core.queue import TaskQueue
 from .core.tree import to_numpy
 from .graph.csr import CSRGraph
 from .graph.slotted import SlottedView
+from .models.ssm import SSMCache
+from .models.transformer import DecodeCache
 
 __all__ = ["graph_from_numpy", "slotted_view_from_numpy", "queue_from_numpy",
            "bfs_state_from_numpy", "pagerank_state_from_numpy",
-           "coloring_state_from_numpy", "params_from_numpy", "to_numpy"]
+           "coloring_state_from_numpy", "params_from_numpy",
+           "cache_from_numpy", "to_numpy"]
 
 
 def _int32(x, device) -> torch.Tensor:
@@ -110,3 +114,23 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(tree[k], device) for k in sorted(tree)}
     return _tensor(tree, device)
+
+
+def cache_from_numpy(cache, device="cuda"):
+    """The reference's ``DecodeCache`` with numpy leaves (for example
+    ``jax.tree.map(np.asarray, cache)``) as the port's
+    ``models.transformer.DecodeCache`` on ``device``: kv (k, v), ssm
+    (conv, state), enc (ek, ev) and length, each in its own type; a field
+    the family does not use stays None."""
+    device = resolve_device(device)
+
+    def tensors(group, kind):
+        if group is None:
+            return None
+        return kind(*(_tensor(a, device) for a in group))
+
+    return DecodeCache(kv=tensors(cache.kv, lambda *t: t),
+                       ssm=tensors(cache.ssm, SSMCache),
+                       enc=tensors(cache.enc, lambda *t: t),
+                       length=_tensor(np.asarray(cache.length, np.int32),
+                                      device))

@@ -1,0 +1,3 @@
+"""Runnable examples of the port, the counterparts of the repository's
+``examples/``: ``python -m repro_torch.examples.<name> [--device cuda|cpu]``
+(default ``cuda``)."""

@@ -3,8 +3,13 @@
 The counterpart of ``repro/launch/serve.py``, with ``--device`` (default
 ``cuda``; pass ``cpu`` to run on the host):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --smoke --requests 16 --slots 4 --mode continuous --device cpu
+
+Every ``--arch`` of the registry serves, smoke or full size: dense, MoE,
+SSM, hybrid, encoder-decoder and VLM (the VLM and the encoder-decoder
+decode text tokens only, with an empty encoder cache, as the reference
+does).
 
 ``synthetic_requests`` makes the reference's numpy draws, so both CLIs
 serve the same request list.

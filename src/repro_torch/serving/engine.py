@@ -12,16 +12,18 @@ The decode wavefront always runs all S slots; inactive slots are masked
 so that their caches do not advance (``blend_cache``).  The engine's
 outputs equal one-request-at-a-time greedy decoding (``decode_single``).
 The cache is replaced, not written in place: ``decode_step`` returns new
-kv tensors and ``blend_cache`` selects between old and new rows.
+kv and ssm tensors and ``blend_cache`` selects between old and new rows.
+Every model family serves through the same engine.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..core.tree import tree_map
 from ..models import transformer as T
 
 
@@ -47,23 +49,29 @@ def blend_cache(old: T.DecodeCache, new: T.DecodeCache, mask: torch.Tensor
                 ) -> T.DecodeCache:
     """Keep ``new`` only for rows where mask is True.
 
-    kv leaves carry the batch at dim 1 ([L, B, ...]); length at dim 0.
+    kv and ssm leaves carry the batch at dim 1 ([L, B, ...]); length at
+    dim 0.  The encoder's K and V are read-only during decode.
     """
     def blend(o, n):
         return torch.where(mask.reshape(1, -1, *([1] * (o.dim() - 2))), n, o)
 
-    return T.DecodeCache(kv=tuple(blend(o, n) for o, n in zip(old.kv, new.kv)),
+    return T.DecodeCache(kv=tree_map(blend, old.kv, new.kv),
+                         ssm=tree_map(blend, old.ssm, new.ssm), enc=old.enc,
                          length=torch.where(mask, new.length, old.length))
 
 
 def reset_slot(cache: T.DecodeCache, s: int) -> T.DecodeCache:
     """Clear one slot's rows before admitting a new request into it."""
-    kv = tuple(a.clone() for a in cache.kv)
-    for a in kv:
+    def cleared(a):
+        a = a.clone()
         a[:, s] = 0
+        return a
+
     length = cache.length.clone()
     length[s] = 0
-    return T.DecodeCache(kv=kv, length=length)
+    return T.DecodeCache(kv=tree_map(cleared, cache.kv),
+                         ssm=tree_map(cleared, cache.ssm), enc=cache.enc,
+                         length=length)
 
 
 class ContinuousBatchingEngine:
@@ -92,7 +100,10 @@ class ContinuousBatchingEngine:
         return T.init_cache(self.cfg, self.num_slots, self.max_len,
                             self.dtype, device=self.device)
 
-    def run(self, requests: List[Request]) -> dict:
+    def run(self, requests: List[Request],
+            trace: Optional[list] = None) -> dict:
+        """Serve ``requests``; ``trace``, if given, receives each
+        wavefront's count of active slots."""
         S = self.num_slots
         pending = list(requests)
         active: dict[int, Request] = {}
@@ -130,6 +141,8 @@ class ContinuousBatchingEngine:
             next_np = next_tok.cpu().numpy()
             stats.wavefronts += 1
             stats.slot_occupancy_sum += len(active) / S
+            if trace is not None:
+                trace.append(len(active))
             for s in list(active):
                 outputs[active[s].uid].append(int(next_np[s, 0]))
                 slot_tok[s, 0] = int(next_np[s, 0])

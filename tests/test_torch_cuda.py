@@ -12,7 +12,10 @@ a ring that drops, hubs whose round takes two tiles a block, a wavefront
 in global scratch; every mode at G = 1, 2, 4, 64 and per_item), the drain
 kernels' grid barrier alone (10^5 checked rounds), the
 flash-attention kernel B5 (its tensor-core and CUDA-core instances)
-against ``attention_ref`` within its stated tolerance, and the task
+against ``attention_ref`` within its stated tolerance, at the dense
+model's shapes and at those of the MoE, hybrid, encoder-decoder and VLM
+prefills, each family's prefill through B5 against its plain path, and
+the task
 server's 8-job mix on the card against the same server on the CPU, with
 the B1/B2 launches its lane steps imply, and the sharded topology: four
 shards on one card against four CPU shards, and the exchange codec.
@@ -23,6 +26,8 @@ reference package, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1545,6 +1550,86 @@ def test_lm_prefill_goes_through_b5_and_matches_the_plain_path():
     for t in range(8):
         logits, cache = T.decode_step(params, cfg, cache, toks[:, t:t + 1])
         torch.testing.assert_close(logits, want[:, t], atol=1e-4, rtol=0)
+
+
+#: B5 where the MoE, hybrid, encoder-decoder and VLM prefills call it on
+#: the card (bh, bkv, s, d, window): olmoe-1b-7b's MHA layer, zamba2-1.2b's
+#: shared block with its 4096-key window crossed, seamless-m4t-medium's
+#: decoder self-attention, llava-next-34b's GQA over 2,880 patches + 320
+#: text tokens
+FAMILY_B5_CASES = [(16, 16, 4096, 128, 0), (8, 8, 8192, 64, 4096),
+                   (32, 32, 256, 64, 0), (56, 8, 3200, 128, 0)]
+
+
+@pytest.mark.parametrize("bh,bkv,s,d,window", FAMILY_B5_CASES)
+def test_flash_attention_at_the_families_shapes(bh, bkv, s, d, window):
+    """bf16 through the tensor-core instance, within one bf16 step of
+    attention_ref at every element."""
+    _require_cuda()
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _flash_inputs(s + d, bh, bkv, s, s, d, torch.bfloat16)
+    before = dict(flash_attention_cuda.instance_launches)
+    out = flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.instance_launches["tensor_core"] == \
+        before["tensor_core"] + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    assert float(_bf16_excess(out, want).max()) <= 1e-6
+
+
+#: B5 launches of one smoke prefill of each family (the hybrid's shared
+#: block once a group; the encoder-decoder's decoder layers; none in SSM)
+FAMILY_LAUNCHES = {"olmoe-1b-7b": 2, "falcon-mamba-7b": 0, "zamba2-1.2b": 2,
+                   "seamless-m4t-medium": 2, "llava-next-34b": 2}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_LAUNCHES))
+def test_family_prefill_goes_through_b5_and_matches_the_plain_path(arch):
+    """Each non-dense family at smoke size in f32 on the card: the prefill
+    with attn_impl auto launches B5 as the family implies and equals the
+    plain path; decode steps from a fresh cache equal the plain logits
+    (the encoder-decoder's cache holding its encoded frames)."""
+    _require_cuda()
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch)
+    if cfg.family == "moe":  # room for every token: decode drops none
+        cfg = dataclasses.replace(cfg, moe_cap_factor_override=4.0)
+    params = init_params(T.model_spec(cfg), 0, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n_text = 128 - (cfg.frontend_len if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, n_text),
+                                     generator=g, device="cuda")}
+    if cfg.family == "vlm":
+        batch["patch_emb"] = torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                         generator=g, device="cuda")
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                      generator=g, device="cuda")
+    before = flash_attention_cuda.launches
+    got = T.prefill(params, cfg, batch, 128)
+    assert flash_attention_cuda.launches == before + FAMILY_LAUNCHES[arch]
+    want = T.prefill(params, cfg, batch, 128, attn_impl="torch")
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+    if cfg.family == "vlm":
+        return  # decode sees text only; the prefill saw the patches first
+    cache = T.init_cache(cfg, 2, 16, torch.float32)
+    if cfg.family == "encdec":
+        cache = cache._replace(enc=T._encode(params, cfg, batch["frames"]))
+    for t in range(8):
+        logits, cache = T.decode_step(params, cfg, cache,
+                                      batch["tokens"][:, t:t + 1])
+        torch.testing.assert_close(logits, want[:, t], atol=1e-4 * scale,
+                                   rtol=0)
 
 
 # ------------------------------------------------- the task server (A11)

@@ -35,6 +35,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import count_params, init_params
 
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 DENSE = ["minitron-4b", "h2o-danube-3-4b", "stablelm-1.6b"]
 TOL = 1e-5
 BLOCKED_TOL = 5e-3
@@ -271,19 +273,6 @@ def test_prefill_decode_consistency_dense():
     for i in range(8):
         dec, cache = T.decode_step(tp, cfg, cache, toks[:, i:i + 1])
         torch.testing.assert_close(dec[0], fwd[0, i], atol=1e-4, rtol=0)
-
-
-@pytest.mark.parametrize("arch", [a for a in J_ARCH_IDS
-                                  if j_get(a).family != "dense"])
-def test_non_dense_families_raise_naming_a14(arch):
-    cfg = smoke_config(arch)
-    params = {"embed": {"tok": torch.zeros(cfg.vocab_size, cfg.d_model)}}
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A14"):
-        T.forward(params, cfg, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="A14"):
-        T.init_cache(cfg, 1, 8, torch.float32, device="cpu")
-    assert T.model_spec(cfg)  # the spec tree exists for every family
 
 
 def test_unknown_attn_impl_raises():

@@ -1,6 +1,7 @@
 """The port's continuous-batching engine against the JAX package's on the
 CPU, at smoke size and in f32, with the JAX weights carried across by
-``params_from_numpy``: greedy tokens equal the JAX engine's and the port's
+``params_from_numpy``: for every architecture (dense, MoE, SSM, hybrid,
+encoder-decoder, VLM) greedy tokens equal the JAX engine's and the port's
 own one-request decode, and the schedule (wavefronts, mean occupancy)
 equals the JAX engine's in both modes.  Also the serve CLI on the CPU."""
 import subprocess
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
 from repro.configs.registry import smoke_config as j_smoke
 from repro.launch.serve import synthetic_requests as j_requests
 from repro.models import transformer as JT
@@ -25,8 +27,12 @@ from repro_torch.launch.serve import synthetic_requests
 from repro_torch.serving.engine import (ContinuousBatchingEngine,
                                         decode_single)
 
+from torch_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parent.parent
 DENSE = ["minitron-4b", "h2o-danube-3-4b", "stablelm-1.6b"]
+ARCHS = DENSE + [a for a in J_ARCH_IDS
+                 if a not in DENSE and j_smoke(a).family != "dense"]
 
 
 def _requests(reqs):
@@ -40,17 +46,37 @@ def test_synthetic_requests_are_the_reference_draws(vocab):
         _requests(j_requests(8, vocab, seed=0))
 
 
+@pytest.fixture(scope="module")
+def served():
+    """``served(arch)``: the JAX smoke weights, the port's copy and one JAX
+    engine an architecture, shared by both modes (its jitted step compiles
+    once; the test sets its mode)."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jcfg = j_smoke(arch)
+            jp = j_init(JT.model_spec(jcfg), jax.random.PRNGKey(1),
+                        jnp.float32)
+            tp = params_from_numpy(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+            made[arch] = (jcfg, tp, JEngine(jcfg, jp, num_slots=4,
+                                             max_len=32))
+        return made[arch]
+
+    return get
+
+
 @pytest.mark.parametrize("mode", ["continuous", "bsp"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_engine_matches_jax_engine(arch, mode):
-    jcfg, cfg = j_smoke(arch), smoke_config(arch)
-    jp = j_init(JT.model_spec(jcfg), jax.random.PRNGKey(1), jnp.float32)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_jax_engine(arch, mode, served):
+    jcfg, tp, jengine = served(arch)
+    cfg = smoke_config(arch)
     reqs = synthetic_requests(8, cfg.vocab_size, seed=0)
     res = ContinuousBatchingEngine(cfg, tp, num_slots=4, max_len=32,
                                    mode=mode).run(reqs)
-    jres = JEngine(jcfg, jp, num_slots=4, max_len=32, mode=mode).run(
-        j_requests(8, jcfg.vocab_size, seed=0))
+    jengine.mode = mode
+    jres = jengine.run(j_requests(8, jcfg.vocab_size, seed=0))
     assert res["outputs"] == jres["outputs"]
     for r in reqs:
         assert len(res["outputs"][r.uid]) == r.max_new_tokens
